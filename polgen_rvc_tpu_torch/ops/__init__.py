@@ -1,0 +1,1 @@
+"""Torch-semantics ops and the hand-written CUDA kernels with their plain twins."""

@@ -1,0 +1,1 @@
+"""Metrics shared by the tests and chip_smoke.py."""
