@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port once on one CUDA card and check it.
 
-    python3 chip_smoke.py [--details PATH]
+    python3 chip_smoke.py
 
 Phases, each printing one JSON line (any failure raises; exit code != 0):
   1. card:     nvidia-smi name and power limit, torch/CUDA versions, the
@@ -20,24 +20,24 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
   3. kernels:  every kernel's wrapper again on the very inputs the main
                path gives it (recorded during one more, untimed convert), held
                against its plain PyTorch twin on the same inputs in the
-               kernel's working precision, with the tolerance printed;
-               timed beside the plain twin, a single PyTorch call where one
-               computes the same function, and the bound (bytes over
-               3.35 TB/s or operations over the peak rate of their type).
+               kernel's working precision, with the tolerance printed, and
+               one launch of each conv kernel against one plain conv at
+               fp32 summation order; timed beside the plain twin, a single
+               PyTorch call where one computes the same function, and the
+               bound (bytes over 3.35 TB/s or operations over the peak
+               rate of the operands' type). Per shape numbers included.
   4. reference: the same full-width model on a 2 s input, on the card
                (bf16) and on the CPU (float32 plain twins), same noise.
                The two F0 passes agree on >= 90% of coarse bins, and on
                one F0 (as tests/test_quality.py pins it) the renditions
                stay below the repo's 0.5 dB mel-distortion gate.
 Then the {"kernels": [...]} line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}. With --details, every phase's numbers (per
-kernel shape, the profile's kernel list) are also written to PATH as JSON.
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 import time
@@ -45,7 +45,7 @@ import time
 import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor core / CUDA core
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor core / CUDA core
 SONG_SECONDS = 60.0
 BENCH_OPTS = dict(index_rate=0.5, protect=0.33, volume_envelope=0.25)
 BENCH_TIERS = dict(x_pad=1, x_query=6, x_center=30, x_max=32, chunk_batch=2,
@@ -179,8 +179,34 @@ def profile_convert(vc, song, opts) -> dict:
             "kernels": kernels}
 
 
+def packed_tensors(tree, keys=("w_taps", "w_mat", "b")):
+    """The tensors a kernel reads from a packed parameter tree: the packed
+    weight layouts and the biases (not the fp32 originals beside them)."""
+    import torch
+
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k in keys and isinstance(v, torch.Tensor):
+                yield v
+            else:
+                yield from packed_tensors(v, keys)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from packed_tensors(v, keys)
+
+
+def abs_stats(ref) -> dict:
+    a = ref.abs().float().flatten()
+    return {"max_abs_ref": float(a.max()), "median_abs_ref": float(a.median())}
+
+
 def check_kernels(rec: Recorder) -> dict:
-    """Phase 3: kernel vs plain twin on every recorded main-path input."""
+    """Phase 3: kernel vs plain twin on every recorded main-path input.
+
+    Each kernel is held to its plain twin over its whole call (a resblock
+    group of 18 convs, a U-Net level of 8) in the kernel's working
+    precision, and one launch of it (one conv, the same bf16-rounded
+    operands both sides) to a single plain conv at fp32 summation order."""
     import torch
     import torch.nn.functional as F
 
@@ -192,64 +218,84 @@ def check_kernels(rec: Recorder) -> dict:
     bf16 = torch.bfloat16
     out = {}
 
-    def add(name, err, tol, ms, plain_ms, lib_ms, flops, byts, kind, count, shape):
-        bound = max(byts / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[kind]) * 1e3
+    def rnd(t):
+        return t.to(bf16).float()
+
+    def single(got, ref):
+        """One launch against one plain op: fp32 summation order only."""
+        err = float((got - ref).abs().max())
+        tol = 1e-4 * float(ref.abs().max()) + 1e-5
+        if not err <= tol:
+            raise AssertionError(f"single launch: max_abs_err {err} > {tol}")
+        return {"max_abs_err": err, "tolerance": tol, **abs_stats(ref)}
+
+    def add(name, err, tol, ref, ms, plain_ms, lib_ms, flops, byts, dtype,
+            count, shape, one=None):
+        dtype = str(dtype).removeprefix("torch.")
+        bytes_ms = byts / PEAK_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
         s = out.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                   "library_ms": None if lib_ms is None else 0.0,
-                                  "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0,
-                                  "shapes": []})
+                                  "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                                  "flops": 0.0, "bytes": 0.0, "shapes": []})
         s["max_abs_err"] = max(s["max_abs_err"], err)
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
-                     ("flops", flops), ("bytes", byts)):
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("bound_ms", max(bytes_ms, ops_ms)), ("bytes_ms", bytes_ms),
+                     ("ops_ms", ops_ms), ("flops", flops), ("bytes", byts)):
             s[k] += v * count
         if lib_ms is not None:
             s["library_ms"] += lib_ms * count
-        s["bytes_ms"] = s.get("bytes_ms", 0.0) + count * byts / PEAK_BYTES_PER_S * 1e3
-        s["ops_ms"] = s.get("ops_ms", 0.0) + count * flops / PEAK_FLOPS[kind] * 1e3
         s["bound_by"] = "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations"
         s["shapes"].append({"shape": shape, "calls": count, "max_abs_err": err,
-                            "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-                            "library_ms": lib_ms, "bound_ms": bound})
+                            "tolerance": tol, **abs_stats(ref), "ms": ms,
+                            "plain_ms": plain_ms, "library_ms": lib_ms,
+                            "bound_ms": max(bytes_ms, ops_ms),
+                            "peak": dtype, "single_launch": one})
         if not err <= tol:
             raise AssertionError(f"{name} {shape}: max_abs_err {err} > {tol}")
 
     for e in rec.calls["resblock_group"].values():
         x, params, ks, ds = e["args"]
         b, c, t = x.shape
-        x32 = x.float()
+        x32 = x.float().contiguous()
         got = rg.fused_resblock_group(x32, params, ks, ds)
         ref = rg.resblock_group_plain(x32, params, ks, ds, operand_dtype=bf16)
         err = float((got - ref).abs().max())
         # bf16 operands on both sides; an intermediate near a bf16 rounding
         # boundary may round one ulp apart before the next of 18 convs
         tol = 1e-2 * float(ref.abs().max())
+        # one launch: the widest-halo conv (k = 11, d = 5) with its residual
+        conv, k, d = params[-1]["convs1"][-1], ks[-1], ds[-1][-1]
+        one = single(rg.resblock_conv(x32, conv, k, d, res=x32),
+                     F.conv1d(rnd(F.leaky_relu(x32, rg.LRELU_SLOPE)), rnd(conv["w"]),
+                              conv["b"], padding=d * (k - 1) // 2, dilation=d) + x32)
         flops = sum(2.0 * b * c * c * k * t * 2 * len(d) for k, d in zip(ks, ds))
-        byts = 2 * nbytes(x) + nbytes(*tree_tensors(params))
-        add("resblock_group", err, tol,
+        byts = 2 * nbytes(x) + nbytes(*packed_tensors(params))
+        add("resblock_group", err, tol, ref,
             cuda_ms(lambda: rg.fused_resblock_group(x, params, ks, ds)),
             cuda_ms(lambda: rg.resblock_group_plain(x, params, ks, ds,
                                                     operand_dtype=bf16)),
-            None, flops, byts, "bf16", e["count"], [b, c, t])
+            None, flops, byts, bf16, e["count"], [b, c, t], one)
 
     for e in rec.calls["conv_transpose"].values():
         x, w, bias = e["args"][:3]
         kw = e["kwargs"]
+        geo = dict(stride=kw["stride"], padding=kw["padding"])
         b, c_in, t = x.shape
         c_out, k = w.shape[1], w.shape[2]
         got = ct.conv_transpose1d(x.float(), w, bias, **kw)
-        ref = ct.conv_transpose1d_plain(x.float(), w, bias, operand_dtype=bf16, **kw)
+        ref = ct.conv_transpose1d_plain(x.float(), w, bias, operand_dtype=bf16, **geo)
         err = float((got - ref).abs().max())
         tol = 1e-4 * float(ref.abs().max()) + 1e-5  # fp32 summation order only
         wb, bb = w.to(x.dtype), bias.to(x.dtype)
-        add("conv_transpose", err, tol,
+        add("conv_transpose", err, tol, ref,
             cuda_ms(lambda: ct.conv_transpose1d(x, w, bias, **kw)),
             cuda_ms(lambda: ct.conv_transpose1d_plain(x, w, bias,
-                                                      operand_dtype=bf16, **kw)),
-            cuda_ms(lambda: F.conv_transpose1d(x, wb, bb, stride=kw["stride"],
-                                               padding=kw["padding"])),
+                                                      operand_dtype=bf16, **geo)),
+            cuda_ms(lambda: F.conv_transpose1d(x, wb, bb, **geo)),
             2.0 * b * c_in * c_out * k * t,
-            nbytes(x, w, bias) + b * c_out * t * kw["stride"] * x.element_size(),
-            "bf16", e["count"], [b, c_in, c_out, t, kw["stride"]])
+            nbytes(x, kw["taps"], bias) + b * c_out * t * kw["stride"] * x.element_size(),
+            bf16, e["count"], [b, c_in, c_out, t, kw["stride"]])
 
     for e in rec.calls["band_attention"].values():
         q, k, v, rk, rv, lens, window = e["args"]
@@ -264,20 +310,32 @@ def check_kernels(rec: Recorder) -> dict:
         tol = 1e-4 * float(ref.abs().max()) + 1e-5  # fp32 both; order only
         lens_l = [min(int(n), t) for n in lens.tolist()]
         flops = sum(4.0 * n * n * dk for n in lens_l)
-        add("band_attention", err, tol,
+        # the bound takes the peak of the type the main path hands the
+        # function (bf16 in a bf16 engine), whatever the kernel computes in
+        add("band_attention", err, tol, ref * valid,
             cuda_ms(lambda: ba.band_attention(q, k, v, rk, rv, lens, window)),
             cuda_ms(lambda: ba.band_attention_plain(q, k, v, rk, rv, lens, window)),
             None, flops, nbytes(q, k, v, rk, rv, lens) + nbytes(q),
-            "fp32", e["count"], [bh, t, dk, lens_l])
+            q.dtype, e["count"], [bh, t, dk, lens_l])
 
     for e in rec.calls["unet_chain"].values():
         x, blocks = e["args"]
         b, c, t, w = x.shape
-        got = uc.convblock_chain(x.float(), blocks)
-        ref = uc.convblock_chain_plain(x.float(), blocks, operand_dtype=bf16)
+        x32 = x.float().contiguous()
+        got = uc.convblock_chain(x32, blocks)
+        ref = uc.convblock_chain_plain(x32, blocks, operand_dtype=bf16)
         err = float((got - ref).abs().max())
         # bf16 operands both sides; one-ulp re-rounding between 8 convs
         tol = 1e-2 * float(ref.abs().max())
+        # one launch of each epilogue: the first block's conv1 (bias, ReLU)
+        # and its conv2 with the residual or 1x1 shortcut of the block input
+        blk = blocks[0]
+        c1, c2, sc = blk["conv1"], blk["conv2"], blk.get("shortcut")
+        y = F.relu(F.conv2d(rnd(x32), rnd(c1["w"]), c1["b"], padding=1))
+        one1 = single(uc.unet_conv3x3(x32, c1), y)
+        res = x32 if sc is None else F.conv2d(x32, rnd(sc["w"]), sc["b"])
+        one2 = single(uc.unet_conv3x3(y, c2, res=x32, shortcut=sc),
+                      F.relu(F.conv2d(rnd(y), rnd(c2["w"]), c2["b"], padding=1)) + res)
         flops = 0.0
         for blk in blocks:
             co, ci = blk["conv1"]["w"].shape[:2]
@@ -285,23 +343,18 @@ def check_kernels(rec: Recorder) -> dict:
             if "shortcut" in blk:
                 flops += 2.0 * b * t * w * ci * co
         c_out = blocks[-1]["conv2"]["w"].shape[0]
-        add("unet_chain", err, tol,
+        add("unet_chain", err, tol, ref,
             cuda_ms(lambda: uc.convblock_chain(x, blocks)),
             cuda_ms(lambda: uc.convblock_chain_plain(x, blocks, operand_dtype=bf16)),
             None, flops,
-            nbytes(x, *tree_tensors(blocks)) + b * c_out * t * w * x.element_size(),
-            "bf16", e["count"], [b, c, c_out, t, w])
+            nbytes(x, *packed_tensors(blocks)) + b * c_out * t * w * x.element_size(),
+            bf16, e["count"], [b, c, c_out, t, w],
+            {"conv1": one1, "conv2": one2})
     return out
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
-
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--details", help="write every phase's numbers to this JSON file")
-    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -395,8 +448,7 @@ def main(argv=None) -> int:
     # ---- kernels at the main path's inputs --------------------------------
     kernels = check_kernels(rec)
     del rec
-    emit({"phase": "kernels", "detail": {n: {k: v for k, v in s.items() if k != "shapes"}
-                                         for n, s in kernels.items()}})
+    emit({"phase": "kernels", "detail": kernels})
 
     # ---- reference on a small input ---------------------------------------
     small = dict(x_pad=1, x_query=2, x_center=3, x_max=4, chunk_batch=1,
@@ -432,7 +484,8 @@ def main(argv=None) -> int:
           "cpu_dtype": "float32", "samples": [int(renditions["cuda"].shape[0]),
                                               int(renditions["cpu"].shape[0])],
           "f0_coarse_equal_frac": coarse_equal, "f0_gate": 0.9,
-          "mel_distortion_db_same_f0": dist, "gate_db": 0.5})
+          "mel_distortion_db_same_f0": dist, "gate_db": 0.5,
+          "script_s_so_far": time.perf_counter() - t_start})
     if renditions["cuda"].shape != renditions["cpu"].shape or not dist < 0.5:
         raise AssertionError(f"card vs CPU reference: {dist} dB")
     if not coarse_equal >= 0.9:
@@ -454,13 +507,6 @@ def main(argv=None) -> int:
          "library_ms": kernels[name]["library_ms"]}
         for name in wrappers
     ]}
-    if args.details:
-        os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
-        with open(args.details, "w") as f:
-            json.dump({"card": smi, "main": main, "profile": profile,
-                       "kernels": kernels, "reference_db": dist,
-                       "total_s": time.perf_counter() - t_start},
-                      f, indent=1, default=str)
     emit(line)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,9 +7,12 @@
 // Replaces polgen_rvc_tpu/ops/flash_relattn.py:flash_band_attention. Rows
 // t >= length hold unspecified (finite) values, as there.
 //
-// Bound: operations (4*T^2*dk multiply-adds per (batch, head) over the valid
-// keys; at T ~ 3,600 and dk = 96 that is ~5 GFLOP per head per layer),
-// with q, k, v read once. Design: fp32 FMA. A block owns 32 query rows of
+// Bound: operations (4*T^2*dk FLOP per (batch, head) over the valid keys;
+// at T ~ 3,600 and dk = 96 that is ~5 GFLOP per head per layer), with q,
+// k, v read once. The main path hands the wrapper bf16, so the bound is
+// the bf16 tensor-core rate; this kernel upcasts to fp32 and runs on the
+// CUDA cores (67 of 989 TFLOP/s at best): a bf16 mma.sync version is later
+// work. Design: fp32 FMA. A block owns 32 query rows of
 // one (batch, head) and walks key tiles of 64 with an online softmax, so no
 // T x T array exists anywhere; key tiles at or past `length` are skipped.
 // The rel-key logits q.rel_k are computed once per block (32 x (2w+1)) and

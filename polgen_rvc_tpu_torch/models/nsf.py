@@ -17,8 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.conv import conv1d
-from ..ops.conv_transpose import conv_transpose1d
-from ..ops.resblock_group import fused_resblock_group
+from ..ops.conv_transpose import conv_transpose1d, pack_phase_taps
+from ..ops.resblock_group import fused_resblock_group, pack_resblock_weights
 from .synthesizer import SynthesizerConfig
 
 LRELU_SLOPE = 0.1
@@ -53,11 +53,25 @@ def source_module(params, f0, upp: int, sample_rate: int, *, noise=None,
     return torch.tanh(sine * w[0, 0] + b[0])
 
 
+def pack_decoder_weights(params, cfg: SynthesizerConfig):
+    """The decoder's parameters with the kernels' weight layouts added, made
+    once when the weights load: each upsample gains "w_taps"
+    (pack_phase_taps of its bf16 weight), each resblock conv its own
+    (pack_resblock_weights)."""
+    ups = []
+    for up, u, k in zip(params["ups"], cfg.upsample_rates, cfg.upsample_kernel_sizes):
+        taps = pack_phase_taps(up["w"].to(torch.bfloat16), int(u), (int(k) - int(u)) // 2)
+        ups.append({**up, "w_taps": taps})
+    return {**params, "ups": ups,
+            "resblocks": pack_resblock_weights(params["resblocks"])}
+
+
 def generator_nsf(params, cfg: SynthesizerConfig, x, f0, g=None, *, noise=None):
     """conv_pre -> per stage [lrelu -> upsample -> + noise_conv(source) ->
     mean(resblocks)] -> lrelu -> conv_post -> tanh.
 
-    x: (B, inter, T); f0: (B, T) Hz; g: (B, gin, 1). Returns (B, T * upp)."""
+    x: (B, inter, T); f0: (B, T) Hz; g: (B, gin, 1). Returns (B, T * upp).
+    On the card, params come through pack_decoder_weights."""
     har = source_module(params["m_source"], f0, cfg.upp, cfg.sr, noise=noise,
                         dtype=x.dtype)[:, None, :]
     x = conv1d(x, params["conv_pre"]["w"], params["conv_pre"]["b"], padding=3)
@@ -74,7 +88,7 @@ def generator_nsf(params, cfg: SynthesizerConfig, x, f0, g=None, *, noise=None):
         # every RVC config has k - 2 * pad == u (T_out = T_in * u), the
         # form the conv-transpose kernel takes
         x = conv_transpose1d(x, up["w"], up["b"], stride=u,
-                             padding=(int(k) - u) // 2)
+                             padding=(int(k) - u) // 2, taps=up.get("w_taps"))
         nc = params["noise_convs"][i]
         x = x + conv1d(har, nc["w"], nc["b"], stride=stride_f0,
                        padding=stride_f0 // 2 if stride_f0 > 1 else 0)

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from ..ops.audio import log_mel_spectrogram, mel_filterbank
 from ..ops.conv import conv2d, conv_transpose2d
 from ..ops.rnn import bigru
-from ..ops.unet_chain import convblock_chain
+from ..ops.unet_chain import convblock_chain, pack_unet_weights
 
 N_MELS = 128
 SAMPLE_RATE = 16000
@@ -49,8 +49,19 @@ def pad_frames_to_32(mel):
     return mel, n
 
 
+def pack_rmvpe_weights(params):
+    """The U-Net's parameters with the chain kernel's weight layouts added
+    (pack_unet_weights), made once when the weights load."""
+    out = dict(params)
+    for part in ("encoder", "intermediate", "decoder"):
+        out[part] = [{**lvl, "blocks": pack_unet_weights(lvl["blocks"])}
+                     for lvl in params[part]]
+    return out
+
+
 def rmvpe_salience(params, mel, *, compute_dtype=torch.float32):
-    """(B, 128, T) log-mel, T a multiple of 32 -> (B, T, 360) salience."""
+    """(B, 128, T) log-mel, T a multiple of 32 -> (B, T, 360) salience.
+    On the card, params come through pack_rmvpe_weights."""
     x = mel.to(compute_dtype).transpose(1, 2)[:, None]  # (B, 1, T, 128)
     inb = params["in_bn"]
     x = x * inb["scale"].to(x.dtype) + inb["shift"].to(x.dtype)

@@ -11,7 +11,10 @@ CUDA tensor ``band_attention`` launches the sm_90a streaming-softmax kernel
 of csrc/band_attention.cu for every enc_p attention call, whatever T (the
 TPU path's T >= 512 gate was a tile choice); it never forms a T x T array.
 On a CPU tensor it runs ``band_attention_plain``, which does form one.
-Working precision: fp32 throughout (inputs are upcast).
+Working precision: fp32 FMA throughout. Inputs in the compute dtype (bf16
+on the card's main path) are upcast on entry and the result is cast back,
+where the TPU kernel multiplied bf16 operands on its matrix unit; a bf16
+tensor-core (mma.sync) version is queued in ROADMAP.md.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ Replaces polgen_rvc_tpu/ops/pallas_convtranspose.py:conv_transpose1d_pallas.
 On a CUDA tensor ``conv_transpose1d`` launches the sm_90a kernel of
 csrc/conv_transpose.cu (all four upsample stages of the 48 kHz config:
 u = 12, 10, 2, 2); bound and design are in the kernel source. On a CPU
-tensor it runs ``conv_transpose1d_plain``.
+tensor it runs ``conv_transpose1d_plain``. The kernel reads its weights
+as ``pack_phase_taps`` lays them out (bf16), made once when the weights
+load and passed as ``taps``.
 
 Output sample t = m*u + r needs only inputs m-1, m, m+1, so each phase r is
 a 3-tap convolution; ``pack_phase_taps`` gathers the weight taps each
@@ -49,8 +51,9 @@ def pack_phase_taps(w, stride: int, padding: int):
     return taps.permute(2, 3, 1, 0).contiguous()
 
 
-def conv_transpose1d(x, w, b, *, stride: int, padding: int):
-    """x: (B, C_in, T) -> (B, C_out, T * stride); w: (C_in, C_out, k)."""
+def conv_transpose1d(x, w, b, *, stride: int, padding: int, taps=None):
+    """x: (B, C_in, T) -> (B, C_out, T * stride); w: (C_in, C_out, k).
+    On a CUDA tensor ``taps`` must be pack_phase_taps(w in bf16)."""
     k = w.shape[-1]
     if k - 2 * padding != stride:
         raise ValueError(f"conv_transpose1d: k={k}, padding={padding} does "
@@ -68,13 +71,20 @@ def conv_transpose1d(x, w, b, *, stride: int, padding: int):
     if c_in % 32 or c_out % 32:
         raise ValueError(f"conv_transpose1d: C_in={c_in}, C_out={c_out} must "
                          "be multiples of 32")
+    if (taps is None or taps.shape != (stride, 3, c_out, c_in)
+            or taps.dtype != torch.bfloat16 or taps.device != x.device
+            or not taps.is_contiguous()):
+        got = "missing" if taps is None else f"{tuple(taps.shape)} {taps.dtype} on {taps.device}"
+        raise ValueError(f"conv_transpose1d: taps are {got}, the kernel takes "
+                         f"contiguous ({stride}, 3, {c_out}, {c_in}) bf16 on "
+                         f"{x.device} (pack_phase_taps, once at load)")
+    if b is not None and (b.dtype != torch.float32 or b.device != x.device
+                          or not b.is_contiguous()):
+        raise ValueError(f"conv_transpose1d: bias must be contiguous float32 on {x.device}")
     fn = cuda_build.bind("conv_transpose", "conv_transpose_upsample", 4,
                          (ctypes.c_int,) * 5)
     x32 = x.float().contiguous()
-    taps = pack_phase_taps(w.to(device=x.device, dtype=torch.bfloat16),
-                           stride, padding)
-    bias = (torch.zeros(c_out, device=x.device) if b is None
-            else b.to(device=x.device, dtype=torch.float32).contiguous())
+    bias = torch.zeros(c_out, device=x.device) if b is None else b
     y = torch.empty(bsz, c_out, t * stride, device=x.device,
                     dtype=torch.float32)
     cuda_build.launch(fn, cuda_build.ptr(x32), cuda_build.ptr(taps),

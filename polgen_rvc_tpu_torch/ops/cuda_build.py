@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict = {}
+_FNS: dict = {}
 
 
 def _nvcc() -> str:
@@ -91,10 +92,13 @@ def load(name: str) -> ctypes.CDLL:
 def bind(name: str, symbol: str, n_ptr: int, tail: tuple):
     """ctypes function `symbol` of kernel `name`: n_ptr pointer arguments,
     then the ctypes types in `tail`, then the stream; returns an int."""
-    fn = getattr(load(name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + list(tail) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    key = (name, symbol)
+    if key not in _FNS:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + list(tail) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS[key] = fn
+    return _FNS[key]
 
 
 def launch(fn, *args):

@@ -12,6 +12,10 @@ sm_90a kernel of csrc/resblock_group.cu once per conv (18 per group at the
 design: see the kernel source. On a CPU tensor it runs
 ``resblock_group_plain``, the same function in plain PyTorch.
 
+The kernel reads each conv's weight in its own layout, "w_taps", which
+``pack_resblock_weights`` adds once when the weights load; the CUDA path
+only checks and launches.
+
 Working precision: bf16 operands (lrelu(x) and the weights), fp32
 accumulation, fp32 intermediates; the result is cast back to x's dtype.
 """
@@ -35,6 +39,18 @@ def _convs(params_list, kernel_sizes, dilations):
         out.append([((p["convs1"][i], int(k), int(d)), (p["convs2"][i], int(k), 1))
                     for i, d in enumerate(dils)])
     return out
+
+
+def pack_resblock_weights(params_list):
+    """The resblocks with every conv's kernel layout added: "w_taps", its
+    (C, C, k) weight as (k, C_out, C_in) bf16, input channels contiguous.
+    Made once when the weights load; the plain twin ignores it."""
+
+    def pack(conv):
+        return {**conv, "w_taps": conv["w"].to(torch.bfloat16).permute(2, 0, 1).contiguous()}
+
+    return [{**p, "convs1": [pack(c) for c in p["convs1"]],
+             "convs2": [pack(c) for c in p["convs2"]]} for p in params_list]
 
 
 def resblock_group_plain(x, params_list, kernel_sizes, dilations, *,
@@ -61,12 +77,61 @@ def resblock_group_plain(x, params_list, kernel_sizes, dilations, *,
     return (acc / len(groups)).to(x.dtype)
 
 
+def _check_packed(conv, c, k, device):
+    w, b = conv.get("w_taps"), conv["b"]
+    if w is None:
+        raise ValueError("fused_resblock_group: conv weights are not packed "
+                         "(pack_resblock_weights, once at load)")
+    if (w.shape != (k, c, c) or w.dtype != torch.bfloat16 or w.device != device
+            or not w.is_contiguous() or b.dtype != torch.float32
+            or b.device != device or not b.is_contiguous()):
+        raise ValueError(f"fused_resblock_group: packed weight {tuple(w.shape)} "
+                         f"{w.dtype} / bias {b.dtype} on {w.device} do not fit "
+                         f"C={c}, k={k} as bf16 / float32 on {device}")
+
+
+def resblock_conv(x, conv, kernel_size: int, dilation: int, *, res=None,
+                  out=None, mode: int = 0, scale: float = 1.0,
+                  slope: float = LRELU_SLOPE):
+    """One launch of the kernel, the group's building block, on fp32
+    (B, C, T) CUDA tensors and a packed conv:
+
+        v = conv_{k,d}(lrelu(x)) + bias (+ res)
+        mode 0: out = v     mode 1: out = v * scale     mode 2: out += v * scale
+
+    Returns out (allocated when None)."""
+    b, c, t = x.shape
+    if x.device.type != "cuda":
+        raise ValueError(f"resblock_conv: launches on CUDA tensors only, not {x.device}")
+    if c % 32:
+        raise ValueError(f"fused_resblock_group: C={c} is not a multiple of 32")
+    for a in (x, res, out):
+        if a is not None and (a.shape != x.shape or a.dtype != torch.float32
+                              or a.device != x.device or not a.is_contiguous()):
+            raise ValueError("resblock_conv: x, res and out must be contiguous "
+                             f"float32 {tuple(x.shape)} on {x.device}")
+    _check_packed(conv, c, kernel_size, x.device)
+    if out is None:
+        out = torch.empty_like(x)
+    fn = cuda_build.bind("resblock_group", "resblock_conv", 5,
+                         (ctypes.c_int,) * 5 + (ctypes.c_float, ctypes.c_int,
+                                                ctypes.c_float))
+    cuda_build.launch(
+        fn, cuda_build.ptr(x), cuda_build.ptr(conv["w_taps"]), cuda_build.ptr(conv["b"]),
+        cuda_build.ptr(res) if res is not None else ctypes.c_void_p(None),
+        cuda_build.ptr(out), b, c, t, kernel_size, dilation, slope, mode, scale,
+    )
+    fused_resblock_group.launches += 1
+    return out
+
+
 def fused_resblock_group(x, params_list, kernel_sizes, dilations, *,
                          slope: float = LRELU_SLOPE):
-    """(B, C, T) -> mean_r resblock_r(x), shape (B, C, T), x's dtype."""
+    """(B, C, T) -> mean_r resblock_r(x), shape (B, C, T), x's dtype. On a
+    CUDA tensor the convs must carry "w_taps" (pack_resblock_weights)."""
     if x.dim() != 3:
         raise ValueError(f"fused_resblock_group: input {tuple(x.shape)} is not (B, C, T)")
-    b, c, t = x.shape
+    c = x.shape[1]
     groups = _convs(params_list, kernel_sizes, dilations)
     for pairs in groups:
         for conv_pair in pairs:
@@ -80,36 +145,22 @@ def fused_resblock_group(x, params_list, kernel_sizes, dilations, *,
                                     slope=slope)
     if x.device.type != "cuda":
         raise ValueError(f"fused_resblock_group: unsupported device {x.device}")
-    if c % 32:
-        raise ValueError(f"fused_resblock_group: C={c} is not a multiple of 32")
-    fn = cuda_build.bind("resblock_group", "resblock_conv", 5,
-                         (ctypes.c_int,) * 5 + (ctypes.c_float, ctypes.c_int,
-                                                ctypes.c_float))
     x_in = x.float().contiguous()
     cur = torch.empty_like(x_in)
     tmp = torch.empty_like(x_in)
     out = torch.empty_like(x_in)
     n_res = len(groups)
-
-    def conv(src, p, k, d, res, dst, mode, scale):
-        w = p["w"].to(device=x.device, dtype=torch.bfloat16).permute(2, 0, 1).contiguous()
-        bias = p["b"].to(device=x.device, dtype=torch.float32).contiguous()
-        cuda_build.launch(
-            fn, cuda_build.ptr(src), cuda_build.ptr(w), cuda_build.ptr(bias),
-            cuda_build.ptr(res) if res is not None else ctypes.c_void_p(None),
-            cuda_build.ptr(dst), b, c, t, k, d, slope, mode, scale,
-        )
-        fused_resblock_group.launches += 1
-
     for r, pairs in enumerate(groups):
         src = x_in
         for i, ((p1, k, d), (p2, _, _)) in enumerate(pairs):
-            conv(src, p1, k, d, None, tmp, 0, 1.0)
+            resblock_conv(src, p1, k, d, out=tmp, slope=slope)
             if i < len(pairs) - 1:
-                conv(tmp, p2, k, 1, src, cur, 0, 1.0)
+                resblock_conv(tmp, p2, k, 1, res=src, out=cur, slope=slope)
                 src = cur
             else:
-                conv(tmp, p2, k, 1, src, out, 1 if r == 0 else 2, 1.0 / n_res)
+                resblock_conv(tmp, p2, k, 1, res=src, out=out,
+                              mode=1 if r == 0 else 2, scale=1.0 / n_res,
+                              slope=slope)
     return out.to(x.dtype)
 
 

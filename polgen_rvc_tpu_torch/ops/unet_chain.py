@@ -10,9 +10,11 @@ Replaces polgen_rvc_tpu/ops/pallas_unet2d.py:fused_convblock_chain_folded
 CUDA tensor ``convblock_chain`` launches the sm_90a kernel of
 csrc/unet_chain.cu twice per block, at every U-Net level (C = 16..512,
 W = 128..4); bound and design are in the kernel source. On a CPU tensor it
-runs ``convblock_chain_plain``. Working precision: bf16 operands (the 1x1
-shortcut's input stays fp32, as in the TPU kernel), fp32 accumulation and
-residuals, result in x's dtype.
+runs ``convblock_chain_plain``. The kernel reads its weights in its own
+layout, which ``pack_unet_weights`` adds once when the weights load.
+
+Working precision: bf16 operands (the 1x1 shortcut's input stays fp32, as
+in the TPU kernel), fp32 accumulation and residuals, result in x's dtype.
 """
 
 from __future__ import annotations
@@ -54,8 +56,77 @@ def pack_taps_3x3(w):
     return F.pad(taps, (0, -c_in % 32)).contiguous()
 
 
+def pack_unet_weights(blocks):
+    """The blocks with the kernel's layouts added, made once when the
+    weights load: each 3x3 conv gains "w_taps" (pack_taps_3x3 of its bf16
+    weight), a 1x1 shortcut gains "w_mat", its (C_out, C_in) weight
+    rounded to bf16 and held in fp32. The plain twin ignores both."""
+    out = []
+    for blk in blocks:
+        new = {**blk}
+        for name in ("conv1", "conv2"):
+            new[name] = {**blk[name],
+                         "w_taps": pack_taps_3x3(blk[name]["w"].to(torch.bfloat16))}
+        if "shortcut" in blk:
+            sc = blk["shortcut"]
+            new["shortcut"] = {**sc, "w_mat": sc["w"].reshape(sc["w"].shape[0], -1)
+                               .to(torch.bfloat16).float().contiguous()}
+        out.append(new)
+    return out
+
+
+def _check(t, shape, dtype, device, what):
+    if (t is None or t.shape != shape or t.dtype != dtype or t.device != device
+            or not t.is_contiguous()):
+        got = "missing" if t is None else f"{tuple(t.shape)} {t.dtype} on {t.device}"
+        raise ValueError(f"convblock_chain: {what} is {got}, the kernel takes "
+                         f"contiguous {shape} {dtype} on {device} "
+                         "(pack_unet_weights, once at load)")
+
+
+def unet_conv3x3(x, conv, *, res=None, shortcut=None, out=None):
+    """One launch of the kernel on fp32 (B, C_in, T, W) CUDA tensors and a
+    packed conv: out = relu(conv3x3(x) + bias) (+ res, or + the 1x1
+    shortcut of the (B, C_res, T, W) block input res). Returns out."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unet_conv3x3: launches on CUDA tensors only, not {x.device}")
+    b, c_in, t, w = x.shape
+    c_out = conv["w"].shape[0]
+    if c_out % 16:
+        raise ValueError(f"convblock_chain: C_out={c_out} is not a multiple of 16")
+    if w > 128 or 128 % w:
+        raise ValueError(f"convblock_chain: W={w} must divide 128")
+    dev, f32 = x.device, torch.float32
+    _check(x, (b, c_in, t, w), f32, dev, "x")
+    _check(conv.get("w_taps"), (9, c_out, c_in + (-c_in % 32)), torch.bfloat16,
+           dev, "the packed 3x3 weight")
+    _check(conv["b"], (c_out,), f32, dev, "the bias")
+    c_res = 0
+    if shortcut is not None:
+        c_res = res.shape[1]
+        _check(shortcut.get("w_mat"), (c_out, c_res), f32, dev, "the packed shortcut")
+        _check(shortcut["b"], (c_out,), f32, dev, "the shortcut bias")
+    if res is not None:
+        _check(res, (b, c_res or c_out, t, w), f32, dev, "the residual")
+    if out is None:
+        out = torch.empty(b, c_out, t, w, device=dev, dtype=f32)
+    _check(out, (b, c_out, t, w), f32, dev, "out")
+    null = ctypes.c_void_p(None)
+    fn = cuda_build.bind("unet_chain", "unet_conv3x3", 7, (ctypes.c_int,) * 7)
+    cuda_build.launch(
+        fn, cuda_build.ptr(x), cuda_build.ptr(conv["w_taps"]), cuda_build.ptr(conv["b"]),
+        null if res is None else cuda_build.ptr(res),
+        null if shortcut is None else cuda_build.ptr(shortcut["w_mat"]),
+        null if shortcut is None else cuda_build.ptr(shortcut["b"]),
+        cuda_build.ptr(out), b, c_in, conv["w_taps"].shape[-1], c_out, c_res, t, w,
+    )
+    convblock_chain.launches += 1
+    return out
+
+
 def convblock_chain(x, blocks):
-    """(B, C_in, T, W) -> (B, C_out, T, W) in x's dtype."""
+    """(B, C_in, T, W) -> (B, C_out, T, W) in x's dtype. On a CUDA tensor
+    the blocks must carry their packed weights (pack_unet_weights)."""
     if x.dim() != 4:
         raise ValueError(f"convblock_chain: input {tuple(x.shape)} is not (B, C, T, W)")
     c = x.shape[1]
@@ -74,45 +145,10 @@ def convblock_chain(x, blocks):
         return convblock_chain_plain(x, blocks)
     if x.device.type != "cuda":
         raise ValueError(f"convblock_chain: unsupported device {x.device}")
-    b, _, t, w = x.shape
-    if w > 128 or 128 % w:
-        raise ValueError(f"convblock_chain: W={w} must divide 128")
-    fn = cuda_build.bind("unet_chain", "unet_conv3x3", 7, (ctypes.c_int,) * 7)
-    null = ctypes.c_void_p(None)
-
-    def conv(src, p, res, sc, dst):
-        c_out, c_in = p["w"].shape[:2]
-        if c_out % 16:
-            raise ValueError(f"convblock_chain: C_out={c_out} is not a "
-                             "multiple of 16")
-        wp = pack_taps_3x3(p["w"].to(device=x.device, dtype=torch.bfloat16))
-        c_in_p = wp.shape[-1]
-        bias = p["b"].to(device=x.device, dtype=torch.float32).contiguous()
-        # the shortcut tensors stay referenced until the launch is queued
-        sc_w = sc_b = None
-        c_res = 0
-        if sc is not None:
-            sc_w = sc["w"].reshape(c_out, -1).to(
-                device=x.device, dtype=torch.bfloat16).float().contiguous()
-            sc_b = sc["b"].to(device=x.device, dtype=torch.float32).contiguous()
-            c_res = sc_w.shape[1]
-        cuda_build.launch(
-            fn, cuda_build.ptr(src), cuda_build.ptr(wp), cuda_build.ptr(bias),
-            null if res is None else cuda_build.ptr(res),
-            null if sc_w is None else cuda_build.ptr(sc_w),
-            null if sc_b is None else cuda_build.ptr(sc_b),
-            cuda_build.ptr(dst), b, c_in, c_in_p, c_out, c_res, t, w,
-        )
-        convblock_chain.launches += 1
-
     h = x.float().contiguous()
     for blk in blocks:
-        c_out = blk["conv1"]["w"].shape[0]
-        y = torch.empty(b, c_out, t, w, device=x.device, dtype=torch.float32)
-        out = torch.empty_like(y)
-        conv(h, blk["conv1"], None, None, y)
-        conv(y, blk["conv2"], h, blk.get("shortcut"), out)
-        h = out
+        y = unet_conv3x3(h, blk["conv1"])
+        h = unet_conv3x3(y, blk["conv2"], res=h, shortcut=blk.get("shortcut"))
     return h.to(x.dtype)
 
 

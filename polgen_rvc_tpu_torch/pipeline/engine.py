@@ -27,7 +27,8 @@ import torch
 from .. import resolve_device
 from ..convert.params import params_to_torch
 from ..models.hubert import HubertConfig, hubert_extract
-from ..models.rmvpe import pad_frames_to_32, rmvpe_mel, rmvpe_salience
+from ..models.nsf import pack_decoder_weights
+from ..models.rmvpe import pack_rmvpe_weights, pad_frames_to_32, rmvpe_mel, rmvpe_salience
 from ..models.synthesizer import SynthesizerConfig, synthesizer_infer
 from ..ops.f0_utils import coarse_f0, salience_to_f0
 from ..ops.filters import highpass_pad_quant
@@ -54,7 +55,8 @@ def torch_noise(seed: int, chunk_id: int, lat_shape: tuple, nsf_len: int,
 class VoiceConverter:
     """rmvpe+ voice conversion over one (synthesizer, HuBERT, RMVPE, index)
     model set. Parameters arrive as numpy dictionaries (the convert/
-    builders' output) and live on ``device`` in float32."""
+    builders' output) and live on ``device`` in float32, with the kernels'
+    packed weight layouts beside them."""
 
     def __init__(self, *, synth_cfg: SynthesizerConfig, synth_params: dict,
                  hubert_cfg: HubertConfig, hubert_params: dict,
@@ -71,9 +73,11 @@ class VoiceConverter:
         self.version = "v2" if synth_cfg.input_dim == 768 else "v1"
         self.compute_dtype = getattr(torch, engine.compute_dtype)
         self.noise_provider = noise_provider
-        self.synth_params = params_to_torch(synth_params, self.device)
+        sp = params_to_torch(synth_params, self.device)
+        # the kernels' weight layouts are made here, once, not per launch
+        self.synth_params = {**sp, "dec": pack_decoder_weights(sp["dec"], synth_cfg)}
         self.hubert_params = params_to_torch(hubert_params, self.device)
-        self.rmvpe_params = params_to_torch(rmvpe_params, self.device)
+        self.rmvpe_params = pack_rmvpe_weights(params_to_torch(rmvpe_params, self.device))
         self.index_bank = (None if index_bank is None
                            else params_to_torch(np.asarray(index_bank), self.device))
 

@@ -2,6 +2,8 @@
 the same seed gives bitwise the same numpy parameter dictionaries, and
 params_to_torch carries them onto tensors without changing a bit."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -53,11 +55,17 @@ def test_full_width_configs_equal(sr):
     assert HubertConfig().__dict__ == JaxHubertConfig().__dict__
 
 
+@functools.lru_cache(maxsize=None)
+def _port_params(seed):
+    """The port's tiny model set (its RMVPE is always full width, the
+    costly part to build): built once per seed for this file's tests."""
+    return synthetic_params(tiny=True, sr=48000, index_vectors=16, seed=seed)
+
+
 @pytest.mark.parametrize("seed", [0, 5])
 def test_synthetic_weights_bitwise_equal(seed):
     tiny = True
-    cfg, synth, hub_cfg, hub, rmvpe, bank = synthetic_params(
-        tiny=tiny, sr=48000, index_vectors=16, seed=seed)
+    cfg, synth, hub_cfg, hub, rmvpe, bank = _port_params(seed)
 
     cpt = jax_synth.make_rvc_checkpoint(sr=48000, tiny=tiny, seed=seed, use_f0=True)
     jcfg = jax_build_config(cpt["config"], use_f0=True, version="v2")
@@ -85,7 +93,7 @@ def test_infer_hubert_config_matches_full_state():
 
 
 def test_params_to_torch_round_trip():
-    _, synth, _, _, rmvpe, _ = synthetic_params(tiny=True)
+    _, synth, _, _, rmvpe, _ = _port_params(0)
     for tree in (synth, rmvpe):
         t = params_to_torch(tree, "cpu")
         back = _to_numpy(t)

@@ -50,8 +50,9 @@ def test_resblock_group_kernel(dev, c, t):
                       "b": _t(rng.standard_normal(c) * 0.02, dev)} for _ in d]
                for key in ("convs1", "convs2")} for k, d in zip(ks, ds)]
     x = _t(rng.standard_normal((2, c, t)) * 0.3, dev)
+    packed = rg.pack_resblock_weights(params)
     got, n = _launched(rg.fused_resblock_group,
-                       lambda: rg.fused_resblock_group(x, params, ks, ds))
+                       lambda: rg.fused_resblock_group(x, packed, ks, ds))
     ref = rg.resblock_group_plain(x, params, ks, ds, operand_dtype=torch.bfloat16)
     assert n == 18
     # bf16 operands both sides; an intermediate near a bf16 rounding boundary
@@ -66,7 +67,24 @@ def test_resblock_group_rejects_channels_off_the_tile(dev):
           "convs2": [{"w": torch.zeros(48, 48, 3, device=dev),
                       "b": torch.zeros(48, device=dev)}]}]
     with pytest.raises(ValueError, match="multiple of 32"):
+        rg.fused_resblock_group(x, rg.pack_resblock_weights(p), (3,), ((1,),))
+
+
+def test_kernel_wrappers_reject_unpacked_weights(dev):
+    """On the card the kernels read only the layouts made at load; a
+    weight that was never packed raises instead of being packed per call."""
+    x = torch.zeros(1, 32, 64, device=dev)
+    p = [{key: [{"w": torch.zeros(32, 32, 3, device=dev),
+                 "b": torch.zeros(32, device=dev)}] for key in ("convs1", "convs2")}]
+    with pytest.raises(ValueError, match="not packed"):
         rg.fused_resblock_group(x, p, (3,), ((1,),))
+    with pytest.raises(ValueError, match="pack_phase_taps"):
+        ct.conv_transpose1d(x, torch.zeros(32, 32, 4, device=dev),
+                            torch.zeros(32, device=dev), stride=2, padding=1)
+    blk = {n: {"w": torch.zeros(32, 32, 3, 3, device=dev),
+               "b": torch.zeros(32, device=dev)} for n in ("conv1", "conv2")}
+    with pytest.raises(ValueError, match="pack_unet_weights"):
+        uc.convblock_chain(torch.zeros(1, 32, 4, 16, device=dev), [blk])
 
 
 @pytest.mark.parametrize("u,c_in,c_out,t", [(12, 64, 32, 70), (10, 32, 64, 33),
@@ -79,8 +97,10 @@ def test_conv_transpose_kernel(dev, u, c_in, c_out, t):
     x = _t(rng.standard_normal((2, c_in, t)) * 0.5, dev)
     w = _t(rng.standard_normal((c_in, c_out, k)) / np.sqrt(c_in * k), dev)
     b = _t(rng.standard_normal(c_out) * 0.02, dev)
+    taps = ct.pack_phase_taps(w.to(torch.bfloat16), u, pad)
     got, n = _launched(ct.conv_transpose1d,
-                       lambda: ct.conv_transpose1d(x, w, b, stride=u, padding=pad))
+                       lambda: ct.conv_transpose1d(x, w, b, stride=u, padding=pad,
+                                                   taps=taps))
     ref = ct.conv_transpose1d_plain(x, w, b, stride=u, padding=pad,
                                     operand_dtype=torch.bfloat16)
     assert n == 1 and got.shape == (2, c_out, t * u)
@@ -133,7 +153,8 @@ def test_unet_chain_kernel(dev, c_in, c_out, t, w):
                                "b": _t(rng.standard_normal(c_out) * 0.05, dev)}
         blocks.append(blk)
     x = _t(rng.standard_normal((1, c_in, t, w)), dev)
-    got, n = _launched(uc.convblock_chain, lambda: uc.convblock_chain(x, blocks))
+    packed = uc.pack_unet_weights(blocks)
+    got, n = _launched(uc.convblock_chain, lambda: uc.convblock_chain(x, packed))
     ref = uc.convblock_chain_plain(x, blocks, operand_dtype=torch.bfloat16)
     assert n == 4 and got.shape == (1, c_out, t, w)
     # bf16 operands both sides; one-ulp re-rounding between the 4 convs

@@ -35,10 +35,10 @@ from polgen_rvc_tpu_torch.ops.conv_transpose import (
     conv_transpose1d_plain, pack_phase_taps,
 )
 from polgen_rvc_tpu_torch.ops.resblock_group import (
-    fused_resblock_group, resblock_group_plain,
+    fused_resblock_group, pack_resblock_weights, resblock_group_plain,
 )
 from polgen_rvc_tpu_torch.ops.unet_chain import (
-    convblock_chain, convblock_chain_plain, pack_taps_3x3,
+    convblock_chain, convblock_chain_plain, pack_taps_3x3, pack_unet_weights,
 )
 
 KS, DS = (3, 7, 11), ((1, 3, 5),) * 3
@@ -224,8 +224,9 @@ def _unet_blocks(rng, c_in, c_out, n_blocks):
 ])
 def test_unet_chain_matches_pallas_and_xla(c_in, c_out, w, fold):
     rng = np.random.default_rng(c_in)
-    blocks = _unet_blocks(rng, c_in, c_out, 3)
-    x = (rng.standard_normal((1, c_in, 40, w)) * 0.5).astype(np.float32)
+    t = 24  # two time tiles of 16, the second ragged
+    blocks = _unet_blocks(rng, c_in, c_out, 2)
+    x = (rng.standard_normal((1, c_in, t, w)) * 0.5).astype(np.float32)
     xt, bt = torch.from_numpy(x), params_to_torch(blocks)
 
     # bf16 operands on both sides (the Pallas kernel at compute_dtype bf16,
@@ -247,8 +248,8 @@ def test_unet_chain_matches_pallas_and_xla(c_in, c_out, w, fold):
     w1 = bt[0]["conv1"]["w"]
     taps = pack_taps_3x3(w1)
     assert taps.shape == (9, c_out, 32)
-    xp = F.pad(torch.cat([xt, torch.zeros(1, 32 - c_in, 40, w)], 1), (1, 1, 1, 1))
-    emu = sum(torch.einsum("oc,bctw->botw", taps[j], xp[:, :, j // 3:j // 3 + 40,
+    xp = F.pad(torch.cat([xt, torch.zeros(1, 32 - c_in, t, w)], 1), (1, 1, 1, 1))
+    emu = sum(torch.einsum("oc,bctw->botw", taps[j], xp[:, :, j // 3:j // 3 + t,
                                                      j % 3:j % 3 + w])
               for j in range(9))
     ref1 = F.conv2d(xt, w1, padding=1)
@@ -259,6 +260,51 @@ def test_unet_chain_matches_pallas_and_xla(c_in, c_out, w, fold):
                                          time_tile=16, compute_dtype=jnp.float32,
                                          interpret=True)
     np.testing.assert_allclose(cpu.numpy(), np.asarray(ref32), rtol=1e-4, atol=1e-4)
+
+
+def test_pack_resblock_weights_layout():
+    """The layout the resblock kernel reads, made once at load: each conv's
+    (C, C, k) weight as (k, C_out, C_in) bf16 beside the untouched fp32
+    original, which the plain twin keeps using."""
+    rng = np.random.default_rng(9)
+    params = params_to_torch(_resblock_params(rng, 32))
+    packed = pack_resblock_weights(params)
+    for p, q in zip(params, packed):
+        for key in ("convs1", "convs2"):
+            for conv, pc in zip(p[key], q[key]):
+                assert pc["w"] is conv["w"] and pc["b"] is conv["b"]
+                w = pc["w_taps"]
+                assert w.dtype == torch.bfloat16 and w.is_contiguous()
+                k = conv["w"].shape[-1]
+                assert w.shape == (k, 32, 32)
+                for j in range(k):  # bf16 rounding is the only change
+                    assert torch.equal(w[j].float(), conv["w"][:, :, j].to(torch.bfloat16).float())
+    assert "w_taps" not in params[0]["convs1"][0]  # the input is not mutated
+    x = torch.from_numpy((rng.standard_normal((1, 32, 50)) * 0.3).astype(np.float32))
+    assert torch.equal(fused_resblock_group(x, packed, KS, DS),
+                       fused_resblock_group(x, params, KS, DS))
+
+
+def test_pack_unet_weights_layout():
+    """The U-Net kernel's layouts, made once at load: the 3x3 taps as
+    pack_taps_3x3 of the bf16 weight, the 1x1 shortcut as a bf16-rounded
+    (C_out, C_in) matrix held in fp32."""
+    rng = np.random.default_rng(10)
+    blocks = params_to_torch(_unet_blocks(rng, 4, 16, 2))
+    packed = pack_unet_weights(blocks)
+    for blk, pb in zip(blocks, packed):
+        for name in ("conv1", "conv2"):
+            assert pb[name]["w"] is blk[name]["w"]
+            assert torch.equal(pb[name]["w_taps"],
+                               pack_taps_3x3(blk[name]["w"].to(torch.bfloat16)))
+            assert pb[name]["w_taps"].shape[-1] == 32
+    sc = packed[0]["shortcut"]
+    assert sc["w_mat"].dtype == torch.float32 and sc["w_mat"].shape == (16, 4)
+    assert torch.equal(sc["w_mat"], blocks[0]["shortcut"]["w"][:, :, 0, 0]
+                       .to(torch.bfloat16).float())
+    assert "shortcut" not in packed[1] and "w_taps" not in blocks[0]["conv1"]
+    x = torch.from_numpy(rng.standard_normal((1, 4, 8, 16)).astype(np.float32))
+    assert torch.equal(convblock_chain(x, packed), convblock_chain(x, blocks))
 
 
 def _bad_resblock():

@@ -20,9 +20,8 @@ from polgen_rvc_tpu_torch.convert.params import params_to_torch
 from polgen_rvc_tpu_torch.models import hubert, nsf, rmvpe, synthesizer
 from polgen_rvc_tpu_torch.ops.filters import highpass_pad_quant
 from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions, EngineConfig
-from polgen_rvc_tpu_torch.pipeline.factory import (
-    build_synthetic_converter, synthetic_params,
-)
+from polgen_rvc_tpu_torch.pipeline.engine import VoiceConverter
+from polgen_rvc_tpu_torch.pipeline.factory import synthetic_params
 from polgen_rvc_tpu_torch.retrieval.topk import retrieval_blend, topk_neighbours
 
 
@@ -38,7 +37,8 @@ def _t(a):
 def test_rmvpe_mel_and_salience(tiny):
     rmvpe_np = tiny[4]
     rng = np.random.default_rng(0)
-    audio = (rng.standard_normal((1, 160 * 63)) * 0.1).astype(np.float32)
+    # 32 frames: the U-Net's smallest input (pooled 16x, then 2x more)
+    audio = (rng.standard_normal((1, 160 * 31)) * 0.1).astype(np.float32)
     mel = rmvpe.rmvpe_mel(_t(audio))
     jmel = np.asarray(jrmvpe.rmvpe_mel(jnp.asarray(audio)))
     # torch.stft (FFT) vs a float32 DFT matmul: ~1e-6 relative on |X|,
@@ -55,13 +55,16 @@ def test_rmvpe_mel_and_salience(tiny):
     np.testing.assert_allclose(sal.numpy(), jsal, rtol=0, atol=1e-4)
 
 
-def test_rmvpe_plus_f0_step_coarse_pitch_exact():
+def test_rmvpe_plus_f0_step_coarse_pitch_exact(tiny):
     """The engine's full-signal rmvpe+ F0 step: dequantized int16 signal ->
     mel -> U-Net -> BiGRU -> cents -> range gate -> shift -> coarse bins."""
     eng = dict(x_pad=1, x_query=2, x_center=3, x_max=4, chunk_batch=2,
                bucket_step_s=2)
-    vc = build_synthetic_converter(tiny=True, engine=EngineConfig(**eng),
-                                   device="cpu")
+    # the fixture's weights are build_synthetic_converter's (same seed)
+    names = ("synth_cfg", "synth_params", "hubert_cfg", "hubert_params",
+             "rmvpe_params", "index_bank")
+    vc = VoiceConverter(**dict(zip(names, tiny)), engine=EngineConfig(**eng),
+                        device="cpu")
     jvc = jax_builder(tiny=True, engine=JaxEngineConfig(**eng))
     t = np.arange(int(1.5 * 16000)) / 16000
     song = (0.4 * np.sin(2 * np.pi * 220 * t * (1 + 0.01 * np.sin(2 * np.pi * 5 * t)))

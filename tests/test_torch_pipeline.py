@@ -8,6 +8,7 @@ two renditions differ only by float32 arithmetic order.
 """
 
 import ast
+import copy
 import subprocess
 import sys
 from pathlib import Path
@@ -24,6 +25,7 @@ from polgen_rvc_tpu.pipeline.config import (
 from polgen_rvc_tpu.pipeline.factory import build_synthetic_converter as jax_builder
 from polgen_rvc_tpu.utils.metrics import mel_distortion_db
 from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions, EngineConfig
+from polgen_rvc_tpu_torch.pipeline.engine import torch_noise
 from polgen_rvc_tpu_torch.pipeline.factory import build_synthetic_converter
 
 PKG = Path(__file__).resolve().parent.parent / "polgen_rvc_tpu_torch"
@@ -52,11 +54,19 @@ def jax_noise(seed, chunk_id, lat_shape, nsf_len, device):
     return torch.from_numpy(eps).to(device), torch.from_numpy(nsf).to(device)
 
 
-def test_convert_matches_jax_end_to_end():
-    song = _bench_song(6.0)
-    vc = build_synthetic_converter(
+@pytest.fixture(scope="module")
+def port_vc():
+    """bench.py's CPU-smoke converter, built once for this file (its
+    full-width RMVPE is the costly part of a build)."""
+    return build_synthetic_converter(
         tiny=True, sr=48000, index_vectors=256,
-        engine=EngineConfig(**SMOKE_ENGINE), device="cpu", noise_provider=jax_noise)
+        engine=EngineConfig(**SMOKE_ENGINE), device="cpu")
+
+
+def test_convert_matches_jax_end_to_end(port_vc):
+    song = _bench_song(6.0)
+    vc = copy.copy(port_vc)
+    vc.noise_provider = jax_noise
     jvc = jax_builder(tiny=True, sr=48000, index_vectors=256,
                       engine=JaxEngineConfig(**SMOKE_ENGINE))
     out, sr = vc.convert(song, ConversionOptions(**BENCH_OPTS))
@@ -70,15 +80,39 @@ def test_convert_matches_jax_end_to_end():
     print(f"mel distortion vs JAX: {dist:.6f} dB")
 
 
-def test_default_noise_is_deterministic_and_seeded():
+def test_default_noise_is_deterministic_and_seeded(port_vc):
     song = _bench_song(3.0)
-    vc = build_synthetic_converter(tiny=True, engine=EngineConfig(**SMOKE_ENGINE),
-                                   device="cpu")
+    vc = port_vc
+    assert vc.noise_provider is torch_noise
     a, _ = vc.convert(song, ConversionOptions(seed=1))
     b, _ = vc.convert(song, ConversionOptions(seed=1))
     c, _ = vc.convert(song, ConversionOptions(seed=2))
     assert np.array_equal(a, b)
     assert not np.array_equal(a, c)
+
+
+def test_weights_are_packed_once_at_load(port_vc):
+    """The converter makes the kernels' weight layouts when it loads its
+    weights, beside the fp32 originals the plain twins use."""
+    dec, cfg = port_vc.synth_params["dec"], port_vc.synth_cfg
+    for up, u in zip(dec["ups"], cfg.upsample_rates):
+        c_in, c_out = up["w"].shape[:2]
+        assert up["w_taps"].shape == (u, 3, c_out, c_in)
+        assert up["w_taps"].dtype == torch.bfloat16
+    for rb in dec["resblocks"]:
+        for conv in (*rb["convs1"], *rb["convs2"]):
+            assert torch.equal(conv["w_taps"].float(),
+                               conv["w"].to(torch.bfloat16).float().permute(2, 0, 1))
+    n_blocks = n_shortcuts = 0
+    for part in ("encoder", "intermediate", "decoder"):
+        for lvl in port_vc.rmvpe_params[part]:
+            for blk in lvl["blocks"]:
+                n_blocks += 1
+                for name in ("conv1", "conv2"):
+                    assert blk[name]["w_taps"].dtype == torch.bfloat16
+                    assert blk[name]["w"].dtype == torch.float32
+                n_shortcuts += "w_mat" in blk.get("shortcut", {})
+    assert n_blocks == 56 and n_shortcuts > 0  # 14 levels of 4 blocks
 
 
 def _imports(path: Path):
