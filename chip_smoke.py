@@ -300,23 +300,46 @@ def check_kernels(rec: Recorder) -> dict:
     for e in rec.calls["band_attention"].values():
         q, k, v, rk, rv, lens, window = e["args"]
         bh, t, dk = q.shape
-        # the kernel works in fp32 whatever its input dtype: compare there,
-        # before the cast back to the caller's dtype adds its own rounding
+        # compare in fp32 out (the kernel rounds fp32 inputs to its bf16
+        # operands; the main path's are bf16 already)
         f32 = [a.float() for a in (q, k, v, rk, rv)]
         got = ba.band_attention(*f32, lens, window)
-        ref = ba.band_attention_plain(*f32, lens, window)
+        ref = ba.band_attention_plain(*f32, lens, window, operand_dtype=bf16)
         valid = torch.arange(t, device=q.device)[None, :, None] < lens[:, None, None]
         err = float(((got - ref) * valid).abs().max())
-        tol = 1e-4 * float(ref.abs().max()) + 1e-5  # fp32 both; order only
+        # the kernel rounds p to bf16 (unit roundoff 2^-8) before the value
+        # product: per element |err| <= 2^-8 sum_u p_u |v_u|, plus fp32 order
+        zero_rv = torch.zeros_like(f32[4])
+        p_abs_v = ba.band_attention_plain(f32[0], f32[1], f32[2].abs(), f32[3], zero_rv,
+                                          lens, window, operand_dtype=bf16)
+        limit = (2.0 ** -8 * p_abs_v + 1e-4 * float(ref.abs().max())) * valid
+        if not bool(((got - ref).abs() * valid <= limit).all()):
+            raise AssertionError("band_attention: error above 2^-8 sum p|v| + 1e-4 max|ref|")
+        tol = float(limit.max())
+        # the rel-value band term alone: the difference of two launches that
+        # differ only in rel_v (p and the value product are the same in
+        # both), against the plain twin's, at fp32 order
+        band_got = got - ba.band_attention(*f32[:4], zero_rv, lens, window)
+        band_ref = ref - ba.band_attention_plain(*f32[:4], zero_rv, lens, window,
+                                                 operand_dtype=bf16)
+        band_err = float(((band_got - band_ref) * valid).abs().max())
+        # (1e-3: p's fp32 order; 4e-6 of the largest output: a few fp32 ulps
+        # of the two outputs whose difference this is)
+        band_tol = (1e-3 * float((band_ref * valid).abs().max())
+                    + 4e-6 * float(ref.abs().max()))
+        if not band_err <= band_tol:
+            raise AssertionError(f"band_attention rel-value term: {band_err} > {band_tol}")
         lens_l = [min(int(n), t) for n in lens.tolist()]
         flops = sum(4.0 * n * n * dk for n in lens_l)
         # the bound takes the peak of the type the main path hands the
-        # function (bf16 in a bf16 engine), whatever the kernel computes in
+        # function (bf16 in a bf16 engine)
         add("band_attention", err, tol, ref * valid,
             cuda_ms(lambda: ba.band_attention(q, k, v, rk, rv, lens, window)),
             cuda_ms(lambda: ba.band_attention_plain(q, k, v, rk, rv, lens, window)),
             None, flops, nbytes(q, k, v, rk, rv, lens) + nbytes(q),
-            q.dtype, e["count"], [bh, t, dk, lens_l])
+            q.dtype, e["count"], [bh, t, dk, lens_l],
+            {"rel_value_term": {"max_abs_err": band_err, "tolerance": band_tol,
+                                **abs_stats(band_ref * valid)}})
 
     for e in rec.calls["unet_chain"].values():
         x, blocks = e["args"]

@@ -8,203 +8,309 @@
 // t >= length hold unspecified (finite) values, as there.
 //
 // Bound: operations (4*T^2*dk FLOP per (batch, head) over the valid keys;
-// at T ~ 3,600 and dk = 96 that is ~5 GFLOP per head per layer), with q,
-// k, v read once. The main path hands the wrapper bf16, so the bound is
-// the bf16 tensor-core rate; this kernel upcasts to fp32 and runs on the
-// CUDA cores (67 of 989 TFLOP/s at best): a bf16 mma.sync version is later
-// work. Design: fp32 FMA. A block owns 32 query rows of
-// one (batch, head) and walks key tiles of 64 with an online softmax, so no
-// T x T array exists anywhere; key tiles at or past `length` are skipped.
-// The rel-key logits q.rel_k are computed once per block (32 x (2w+1)) and
-// added only where the band crosses a tile; the rel-value term reads the
-// same tile's probabilities at the band offsets. The key and value tiles
-// share one shared-memory buffer.
+// at T ~ 3,600 and dk = 96 that is ~5 GFLOP per head per layer) at the
+// bf16 tensor-core rate, with q, k, v read once. Design: a flash-attention
+// pass on mma.sync m16n8k16, bf16 operands, fp32 accumulators. A block owns
+// 64 query rows of one (batch, head), 16 per warp, and walks key tiles of
+// 64 up to the row block's length (later tiles are skipped). q stays in
+// registers as A fragments; each key tile is staged once in shared memory,
+// k row-major for q.k^T and v read through ldmatrix.trans as the B operand
+// of p.v, so no transpose pass exists. The softmax is online in fp32 in the
+// score fragments (row max and sum across the four lanes of a row); p is
+// rounded to bf16 for the value product, as flash kernels do. The band
+// terms cost only where the +-w band crosses a tile: the rel-key logits
+// q.rel_k are computed once per block (64 x (2w+1), fp32) and added to the
+// scores there, and the warp writes its fp32 probabilities to its own
+// shared tile so each lane adds p[t,t+d] rel_v[d+w] to its output columns.
+// No T x T array exists anywhere. Not pipelined: the next tile's loads wait
+// for this tile's products (later work: cp.async double buffering, wgmma).
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 32;
-constexpr int BK = 64;
-constexpr int THREADS = 256;
+constexpr int BQ = 64;        // query rows per block, 16 per warp
+constexpr int BK = 64;        // keys per tile
+constexpr int THREADS = 128;  // four warps
 constexpr int MAXD = 128;
+constexpr int PS = BK + 4;    // fp32 row stride of a warp's probability tile
 constexpr float NEG = -1e30f;
 
+// Two 8x8 bf16 matrices from shared memory, transposed: lanes 0-15 give the
+// row addresses (16-byte aligned). Lane (g, q) receives M0[2q..2q+1][g] and
+// M1[2q..2q+1][g]: the B fragment of mma.sync for a row-major [k][n] tile.
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t* b,
+                                              const __nv_bfloat16* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(b[0]), "=r"(b[1])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename OutT>
 __global__ void __launch_bounds__(THREADS)
-band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ relk,
-                      const float* __restrict__ relv,
-                      const int* __restrict__ lengths, float* __restrict__ out,
+band_attention_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const __nv_bfloat16* __restrict__ relk,
+                      const __nv_bfloat16* __restrict__ relv,
+                      const int* __restrict__ lengths, OutT* __restrict__ out,
                       int T, int D, int W) {
-  extern __shared__ __align__(16) float sm[];
-  const int DP = D + 1;     // padded row stride
-  const int NR = 2 * W + 1; // band width
-  float* qs = sm;                  // BQ x DP
-  float* kv = qs + BQ * DP;        // BK x DP (keys, then values)
-  float* ss = kv + BK * DP;        // BQ x (BK+1) scores / probabilities
-  float* rk = ss + BQ * (BK + 1);  // NR x D
-  float* rv = rk + NR * D;         // NR x D
-  float* qr = rv + NR * D;         // BQ x NR rel-key logits
-  float* mrow = qr + BQ * NR;      // BQ running max
-  float* lrow = mrow + BQ;         // BQ running sum
-  float* arow = lrow + BQ;         // BQ rescale factor
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int SD = D + 8;      // bf16 row stride: 16-byte rows, no bank conflicts
+  const int NR = 2 * W + 1;  // band width
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BQ x SD
+  __nv_bfloat16* ks = qs + BQ * SD;                                 // BK x SD
+  __nv_bfloat16* vs = ks + BK * SD;                                 // BK x SD
+  float* ps = reinterpret_cast<float*>(vs + BK * SD);  // 4 warps x 16 x PS
+  float* rv = ps + 4 * 16 * PS;                        // NR x D
+  float* qr = rv + NR * D;                             // BQ x NR
 
   const int bh = blockIdx.y;
   const int t0 = blockIdx.x * BQ;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, qd = lane & 3;
+  const int row0 = warp * 16;  // the warp's first row in the block
   const int len = min(lengths[bh], T);
   const size_t base = (size_t)bh * T * D;
+  const int DV = D / 8;    // 16-byte vectors per row
+  const int KD = D / 16;   // mma depth steps over D
+  const int ND = D / 8;    // 8-wide output column tiles
 
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int i = idx / D, d = idx - i * D;
+  for (int idx = tid; idx < BQ * DV; idx += THREADS) {
+    const int i = idx / DV, c = idx - i * DV;
     const int t = t0 + i;
-    qs[i * DP + d] = t < T ? q[base + (size_t)t * D + d] : 0.f;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (t < T) val = *reinterpret_cast<const uint4*>(q + base + (size_t)t * D + c * 8);
+    *reinterpret_cast<uint4*>(qs + i * SD + c * 8) = val;
   }
-  for (int idx = tid; idx < NR * D; idx += THREADS) {
-    rk[idx] = relk[idx];
-    rv[idx] = relv[idx];
-  }
-  if (tid < BQ) {
-    mrow[tid] = NEG;
-    lrow[tid] = 0.f;
-  }
+  for (int idx = tid; idx < NR * D; idx += THREADS)
+    rv[idx] = __bfloat162float(relv[idx]);
   __syncthreads();
+  // rel-key logits of the block's rows (products of bf16 values, exact in
+  // fp32); read after the first tile's barrier
   for (int idx = tid; idx < BQ * NR; idx += THREADS) {
     const int i = idx / NR, r = idx - i * NR;
     float s = 0.f;
-    for (int d = 0; d < D; ++d) s += qs[i * DP + d] * rk[r * D + d];
+    for (int d = 0; d < D; ++d)
+      s += __bfloat162float(qs[i * SD + d]) * __bfloat162float(relk[r * D + d]);
     qr[idx] = s;
   }
 
-  // value accumulators: row i = tid / 8, columns d = tid % 8 + 8 * s
-  const int ai = tid >> 3, ad = tid & 7;
-  float acc[MAXD / 8];
+  uint32_t qa[MAXD / 16][4];
 #pragma unroll
-  for (int s = 0; s < MAXD / 8; ++s) acc[s] = 0.f;
+  for (int kk = 0; kk < MAXD / 16; ++kk) {
+    if (kk < KD) {
+      const __nv_bfloat16* p = qs + (row0 + g) * SD + kk * 16 + 2 * qd;
+      qa[kk][0] = *reinterpret_cast<const uint32_t*>(p);
+      qa[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * SD);
+      qa[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
+      qa[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * SD + 8);
+    }
+  }
 
-  // score mapping: column j = tid % 64, rows i = tid / 64 + 4 * r
-  const int sj = tid & 63, si = tid >> 6;
+  // output accumulators: rows g (elements 0, 1) and g + 8 (2, 3), columns
+  // dn * 8 + 2q (+1)
+  float o[MAXD / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < MAXD / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+  float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
+  float* pw = ps + warp * 16 * PS;
+  const int tw = t0 + row0;  // the warp's first query position
 
   for (int k0 = 0; k0 < len; k0 += BK) {
     __syncthreads();
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int j = idx / D, d = idx - j * D;
+    for (int idx = tid; idx < BK * DV; idx += THREADS) {
+      const int j = idx / DV, c = idx - j * DV;
       const int u = k0 + j;
-      kv[j * DP + d] = u < T ? k[base + (size_t)u * D + d] : 0.f;
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+      if (u < T) {
+        kv = *reinterpret_cast<const uint4*>(k + base + (size_t)u * D + c * 8);
+        vv = *reinterpret_cast<const uint4*>(v + base + (size_t)u * D + c * 8);
+      }
+      *reinterpret_cast<uint4*>(ks + j * SD + c * 8) = kv;
+      *reinterpret_cast<uint4*>(vs + j * SD + c * 8) = vv;
     }
     __syncthreads();
-    {
-      float s[BQ / 4];
+
+    // scores: 16 rows x 64 keys per warp
+    float s[BK / 8][4];
 #pragma unroll
-      for (int r = 0; r < BQ / 4; ++r) s[r] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float kd = kv[sj * DP + d];
+    for (int nt = 0; nt < BK / 8; ++nt)
 #pragma unroll
-        for (int r = 0; r < BQ / 4; ++r) s[r] += qs[(si + 4 * r) * DP + d] * kd;
-      }
-      const int u = k0 + sj;
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-      for (int r = 0; r < BQ / 4; ++r) {
-        const int i = si + 4 * r;
-        const int off = u - (t0 + i) + W;
-        float val = s[r];
-        if (off >= 0 && off < NR) val += qr[i * NR + off];
-        ss[i * (BK + 1) + sj] = u < len ? val : NEG;
+    for (int kk = 0; kk < MAXD / 16; ++kk) {
+      if (kk < KD) {
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt) {
+          const __nv_bfloat16* p = ks + (nt * 8 + g) * SD + kk * 16 + 2 * qd;
+          uint32_t b[2];
+          b[0] = *reinterpret_cast<const uint32_t*>(p);
+          b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
+          mma_bf16_16816(s[nt], qa[kk], b);
+        }
       }
     }
-    __syncthreads();
-    // online softmax: each warp updates 4 rows
-    for (int i = warp; i < BQ; i += THREADS / 32) {
-      float* row = ss + i * (BK + 1);
-      const float a = row[lane], b2 = row[lane + 32];
-      float mx = fmaxf(a, b2);
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, o));
-      const float m_old = mrow[i];
-      const float m_new = fmaxf(m_old, mx);
-      const float pa = expf(a - m_new), pb = expf(b2 - m_new);
-      float sum = pa + pb;
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffff, sum, o);
-      row[lane] = pa;
-      row[lane + 32] = pb;
+    const bool band = k0 <= tw + 15 + W && k0 + BK - 1 >= tw - W;
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = row0 + g + (e >> 1) * 8;
+        const int u = k0 + nt * 8 + 2 * qd + (e & 1);
+        float val = s[nt][e];
+        if (band) {
+          const int off = u - (t0 + i) + W;
+          if (off >= 0 && off < NR) val += qr[i * NR + off];
+        }
+        s[nt][e] = u < len ? val : NEG;
+      }
+
+    // online softmax of rows g (h = 0) and g + 8 (h = 1); key 0 is always
+    // valid, so every row's running max is finite after the first tile
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = NEG;
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt)
+        mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[h], mx);
+      const float alpha = expf(m_run[h] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[nt][e] = expf(s[nt][e] - m_new);
+          sum += s[nt][e];
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run[h] = l_run[h] * alpha + sum;
+      m_run[h] = m_new;
+#pragma unroll
+      for (int dn = 0; dn < MAXD / 8; ++dn) {
+        o[dn][2 * h] *= alpha;
+        o[dn][2 * h + 1] *= alpha;
+      }
+    }
+
+    // p.v: the score fragments are the A fragments of the product
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16x2(__float2bfloat16(s[2 * kk][0]), __float2bfloat16(s[2 * kk][1]));
+      pa[1] = pack_bf16x2(__float2bfloat16(s[2 * kk][2]), __float2bfloat16(s[2 * kk][3]));
+      pa[2] = pack_bf16x2(__float2bfloat16(s[2 * kk + 1][0]),
+                          __float2bfloat16(s[2 * kk + 1][1]));
+      pa[3] = pack_bf16x2(__float2bfloat16(s[2 * kk + 1][2]),
+                          __float2bfloat16(s[2 * kk + 1][3]));
+      const __nv_bfloat16* vrow = vs + (kk * 16 + (lane & 15)) * SD;
+#pragma unroll
+      for (int dn = 0; dn < MAXD / 8; ++dn) {
+        if (dn < ND) {
+          uint32_t b[2];
+          ldsm_x2_trans(b, vrow + dn * 8);
+          mma_bf16_16816(o[dn], pa, b);
+        }
+      }
+    }
+
+    // rel-value band: p[t, t+d] rel_v[d+w] from the warp's fp32 probabilities
+    if (band) {
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          store2(pw + (g + 8 * h) * PS + nt * 8 + 2 * qd, s[nt][2 * h],
+                 s[nt][2 * h + 1]);
       __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        arow[i] = alpha;
-        lrow[i] = lrow[i] * alpha + sum;
-        mrow[i] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int j = idx / D, d = idx - j * D;
-      const int u = k0 + j;
-      kv[j * DP + d] = u < T ? v[base + (size_t)u * D + d] : 0.f;
-    }
-    __syncthreads();
-    {
-      const float alpha = arow[ai];
-      const float* prow = ss + ai * (BK + 1);
 #pragma unroll
-      for (int s = 0; s < MAXD / 8; ++s) acc[s] *= alpha;
-      for (int j = 0; j < BK; ++j) {
-        const float pj = prow[j];
-        const float* vr = kv + j * DP;
+      for (int h = 0; h < 2; ++h) {
+        const int t = tw + g + 8 * h;
+        for (int r = 0; r < NR; ++r) {
+          const int j = t - W + r - k0;
+          if (j < 0 || j >= BK) continue;
+          const float pj = pw[(g + 8 * h) * PS + j];
+          const float* rvr = rv + r * D + 2 * qd;
 #pragma unroll
-        for (int s = 0; s < MAXD / 8; ++s) {
-          const int d = ad + 8 * s;
-          if (d < D) acc[s] += pj * vr[d];
+          for (int dn = 0; dn < MAXD / 8; ++dn) {
+            if (dn < ND) {
+              o[dn][2 * h] += pj * rvr[dn * 8];
+              o[dn][2 * h + 1] += pj * rvr[dn * 8 + 1];
+            }
+          }
         }
       }
-      const int t = t0 + ai;
-      for (int r = 0; r < NR; ++r) {
-        const int j = t - W + r - k0;
-        if (j < 0 || j >= BK) continue;
-        const float pj = prow[j];
-#pragma unroll
-        for (int s = 0; s < MAXD / 8; ++s) {
-          const int d = ad + 8 * s;
-          if (d < D) acc[s] += pj * rv[r * D + d];
-        }
-      }
+      __syncwarp();
     }
   }
 
-  const int t = t0 + ai;
-  if (t >= T) return;
-  const float inv = 1.f / fmaxf(lrow[ai], 1e-30f);
 #pragma unroll
-  for (int s = 0; s < MAXD / 8; ++s) {
-    const int d = ad + 8 * s;
-    if (d < D) out[base + (size_t)t * D + d] = acc[s] * inv;
+  for (int h = 0; h < 2; ++h) {
+    const int t = tw + g + 8 * h;
+    if (t >= T) continue;
+    const float inv = 1.f / l_run[h];
+    OutT* orow = out + base + (size_t)t * D + 2 * qd;
+#pragma unroll
+    for (int dn = 0; dn < MAXD / 8; ++dn)
+      if (dn < ND) store2(orow + dn * 8, o[dn][2 * h] * inv, o[dn][2 * h + 1] * inv);
   }
+}
+
+template <typename OutT>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* relk, const void* relv, const void* lengths,
+                   void* out, int BH, int T, int D, int W, cudaStream_t stream) {
+  const int NR = 2 * W + 1;
+  const size_t smem = sizeof(__nv_bfloat16) * (size_t)(BQ + 2 * BK) * (D + 8) +
+                      sizeof(float) * ((size_t)4 * 16 * PS + (size_t)NR * D +
+                                       (size_t)BQ * NR);
+  cudaError_t err = cudaFuncSetAttribute(
+      band_attention_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T + BQ - 1) / BQ, BH);
+  band_attention_kernel<OutT><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(relk),
+      static_cast<const __nv_bfloat16*>(relv), static_cast<const int*>(lengths),
+      static_cast<OutT*>(out), T, D, W);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, out: (BH, T, D) fp32, q already scaled by 1/sqrt(D);
-// relk, relv: (2W+1, D) fp32; lengths: (BH,) int32, each >= 1.
+// q, k, v: (BH, T, D) bf16, q already scaled by 1/sqrt(D); relk, relv:
+// (2W+1, D) bf16; lengths: (BH,) int32, each >= 1; out: (BH, T, D), fp32
+// when out_f32 else bf16. D is a multiple of 16, at most 128.
 POLGEN_API int band_attention(const void* q, const void* k, const void* v,
                               const void* relk, const void* relv,
                               const void* lengths, void* out, int BH, int T,
-                              int D, int W, void* stream) {
-  if (D < 1 || D > MAXD || W < 0) return (int)cudaErrorInvalidValue;
-  const int NR = 2 * W + 1;
-  const size_t smem = sizeof(float) *
-      ((size_t)(BQ + BK) * (D + 1) + BQ * (BK + 1) + 2 * NR * D + BQ * NR +
-       3 * BQ);
-  cudaError_t err = cudaFuncSetAttribute(
-      band_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + BQ - 1) / BQ, BH);
-  band_attention_kernel<<<grid, THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(relk),
-      static_cast<const float*>(relv), static_cast<const int*>(lengths),
-      static_cast<float*>(out), T, D, W);
-  return (int)cudaGetLastError();
+                              int D, int W, int out_f32, void* stream) {
+  if (D < 16 || D > MAXD || D % 16 != 0 || W < 0 || BH < 1 || T < 1 ||
+      BH > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      out_f32 ? launch<float>(q, k, v, relk, relv, lengths, out, BH, T, D, W, s)
+              : launch<__nv_bfloat16>(q, k, v, relk, relv, lengths, out, BH, T,
+                                      D, W, s);
+  return (int)err;
 }

@@ -11,10 +11,12 @@ CUDA tensor ``band_attention`` launches the sm_90a streaming-softmax kernel
 of csrc/band_attention.cu for every enc_p attention call, whatever T (the
 TPU path's T >= 512 gate was a tile choice); it never forms a T x T array.
 On a CPU tensor it runs ``band_attention_plain``, which does form one.
-Working precision: fp32 FMA throughout. Inputs in the compute dtype (bf16
-on the card's main path) are upcast on entry and the result is cast back,
-where the TPU kernel multiplied bf16 operands on its matrix unit; a bf16
-tensor-core (mma.sync) version is queued in ROADMAP.md.
+
+Working precision on the card: bf16 operands (q, k, v, the relative tables,
+and the probabilities in the value product, as in flash kernels), fp32
+softmax and accumulation; the result comes back in q's dtype (bf16 or
+fp32). bf16 inputs, as the main path gives them, go to the kernel with no
+cast; fp32 inputs are rounded to bf16 first.
 """
 
 from __future__ import annotations
@@ -26,9 +28,17 @@ import torch
 from . import cuda_build
 
 
-def band_attention_plain(q, k, v, rel_k, rel_v, lengths, window: int):
+def band_attention_plain(q, k, v, rel_k, rel_v, lengths, window: int, *,
+                         operand_dtype=None):
     """Dense fp32 twin: q, k, v (BH, T, dk); rel_k, rel_v (2w+1, dk);
-    lengths (BH,) -> (BH, T, dk) in q's dtype."""
+    lengths (BH,) -> (BH, T, dk) in q's dtype. operand_dtype (e.g.
+    torch.bfloat16) rounds q, k, v and the tables to it first, as the
+    kernel does; the kernel also rounds p before the value product."""
+
+    out_dtype = q.dtype
+    if operand_dtype is not None:
+        q, k, v, rel_k, rel_v = (a.to(operand_dtype).float()
+                                 for a in (q, k, v, rel_k, rel_v))
     bh, t, dk = q.shape
     w = window
     q32, k32, v32 = q.float(), k.float(), v.float()
@@ -49,7 +59,14 @@ def band_attention_plain(q, k, v, rel_k, rel_v, lengths, window: int):
     col_ok = (band_cols >= 0) & (band_cols < t)
     pb = torch.gather(p, 2, band_cols.clamp(0, t - 1).expand(bh, t, 2 * w + 1))
     out = out + (pb * col_ok) @ rel_v.float()
-    return out.to(q.dtype)
+    return out.to(out_dtype)
+
+
+def _operand(a):
+    """a as the kernel reads it: contiguous bf16 starting on a 16-byte
+    boundary (rows are loaded as 16-byte vectors); no copy when it is."""
+    a = a.to(torch.bfloat16).contiguous()
+    return a if a.data_ptr() % 16 == 0 else a.clone()
 
 
 def band_attention(q, k, v, rel_k, rel_v, lengths, window: int):
@@ -67,21 +84,22 @@ def band_attention(q, k, v, rel_k, rel_v, lengths, window: int):
     if q.device.type != "cuda":
         raise ValueError(f"band_attention: unsupported device {q.device}")
     bh, t, dk = q.shape
-    if dk > 128:
-        raise ValueError(f"band_attention: dk={dk} is above 128")
+    if dk % 16 or dk > 128:
+        raise ValueError(f"band_attention: dk={dk} is not a multiple of 16 up to 128")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"band_attention: dtype {q.dtype} is neither bfloat16 nor float32")
+    tensors = (q, k, v, rel_k, rel_v, lengths)
+    if any(a.device != q.device for a in tensors):
+        raise ValueError("band_attention: inputs lie on different devices")
+    ops = [_operand(a) for a in (q, k, v, rel_k, rel_v)]
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
     fn = cuda_build.bind("band_attention", "band_attention", 7,
-                         (ctypes.c_int,) * 4)
-    q32, k32, v32 = (a.to(device=q.device, dtype=torch.float32).contiguous()
-                     for a in (q, k, v))
-    rk = rel_k.to(device=q.device, dtype=torch.float32).contiguous()
-    rv = rel_v.to(device=q.device, dtype=torch.float32).contiguous()
-    lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty_like(q32)
-    cuda_build.launch(fn, *(cuda_build.ptr(a) for a in
-                            (q32, k32, v32, rk, rv, lens, out)),
-                      bh, t, dk, window)
+                         (ctypes.c_int,) * 5)
+    cuda_build.launch(fn, *(cuda_build.ptr(a) for a in (*ops, lens, out)),
+                      bh, t, dk, window, int(q.dtype == torch.float32))
     band_attention.launches += 1
-    return out.to(q.dtype)
+    return out
 
 
 band_attention.launches = 0

@@ -115,26 +115,41 @@ def test_conv_transpose_rejects_channels_off_the_tile(dev):
                             stride=2, padding=1)
 
 
-@pytest.mark.parametrize("bh,t,dk,lengths", [(4, 300, 96, (300, 250, 64, 1)),
-                                             (2, 77, 16, (77, 40)),
-                                             (3, 130, 128, (130, 129, 65))])
-def test_band_attention_kernel(dev, bh, t, dk, lengths):
+@pytest.mark.parametrize("bh,t,dk,lengths,rel_scale", [
+    (4, 300, 96, (300, 250, 64, 1), 1.0),
+    (2, 77, 16, (77, 40), 1.0),
+    (3, 130, 128, (130, 129, 65), 1.0),
+    (2, 200, 96, (200, 131), 8.0),  # large rel_k: p peaks on the band
+])
+def test_band_attention_kernel(dev, bh, t, dk, lengths, rel_scale):
     rng = np.random.default_rng(t + dk)
     w = 10
     q = _t(rng.standard_normal((bh, t, dk)) / np.sqrt(dk), dev)
     k, v = (_t(rng.standard_normal((bh, t, dk)), dev) for _ in range(2))
-    rk, rv = (_t(rng.standard_normal((2 * w + 1, dk)) * dk ** -0.5, dev)
-              for _ in range(2))
+    rk = _t(rng.standard_normal((2 * w + 1, dk)) * rel_scale, dev)
+    rv = _t(rng.standard_normal((2 * w + 1, dk)) * dk ** -0.5, dev)
     lens = torch.tensor(lengths, device=dev)
     got, n = _launched(ba.band_attention,
                        lambda: ba.band_attention(q, k, v, rk, rv, lens, w))
-    ref = ba.band_attention_plain(q, k, v, rk, rv, lens, w)
-    assert n == 1
-    # fp32 both sides, exp and sums in another order; rows past a length
-    # are unspecified
+    bf16 = torch.bfloat16
+    ref = ba.band_attention_plain(q, k, v, rk, rv, lens, w, operand_dtype=bf16)
+    p_abs_v = ba.band_attention_plain(q, k, v.abs(), rk, torch.zeros_like(rv), lens,
+                                      w, operand_dtype=bf16)
+    assert n == 1 and got.dtype == torch.float32
+    # the same bf16 operands both sides; the kernel rounds p to bf16 (unit
+    # roundoff 2^-8) before the value product, so per element
+    # |err| <= 2^-8 sum_u p_u |v_u|, plus fp32 summation order; rows past a
+    # length are unspecified
     for i, n_valid in enumerate(lengths):
-        torch.testing.assert_close(got[i, :n_valid], ref[i, :n_valid],
-                                   rtol=1e-4, atol=1e-5)
+        err = (got[i, :n_valid] - ref[i, :n_valid]).abs()
+        limit = 2.0 ** -8 * p_abs_v[i, :n_valid] + 1e-4 * ref[i, :n_valid].abs().max()
+        assert bool((err <= limit).all()), float((err - limit).max())
+    # bf16 in, bf16 out, no cast around the launch
+    got16 = ba.band_attention(*(a.to(bf16) for a in (q, k, v, rk, rv)), lens, w)
+    assert got16.dtype == bf16
+    for i, n_valid in enumerate(lengths):
+        torch.testing.assert_close(got16[i, :n_valid].float(), got[i, :n_valid],
+                                   rtol=2 ** -8, atol=1e-5)  # one bf16 rounding
 
 
 @pytest.mark.parametrize("c_in,c_out,t,w", [(1, 16, 37, 128), (16, 32, 20, 64),

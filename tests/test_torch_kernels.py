@@ -200,6 +200,26 @@ def test_band_attention_plain_matches_dense_reference():
         assert torch.allclose(got[i, :n], ref[:n], rtol=1e-5, atol=1e-5)
 
 
+def test_band_attention_plain_at_bf16_operands():
+    """The twin the card kernel is held to: operand_dtype rounds q, k, v
+    and both tables to bf16 and computes in fp32, returning the caller's
+    dtype; on already-rounded fp32 inputs it is the fp32 twin exactly."""
+    rng = np.random.default_rng(6)
+    bh, t, dk, w = 2, 40, 16, 10
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, t, dk)).astype(np.float32))
+               for _ in range(3))
+    rk, rv = (torch.from_numpy(rng.standard_normal((2 * w + 1, dk)).astype(np.float32))
+              for _ in range(2))
+    lens = torch.tensor([40, 23])
+    bf16 = torch.bfloat16
+    got = band_attention_plain(q, k, v, rk, rv, lens, w, operand_dtype=bf16)
+    rounded = [a.to(bf16).float() for a in (q, k, v, rk, rv)]
+    assert got.dtype == torch.float32
+    assert torch.equal(got, band_attention_plain(*rounded, lens, w))
+    half = band_attention_plain(q.to(bf16), k, v, rk, rv, lens, w, operand_dtype=bf16)
+    assert half.dtype == bf16
+
+
 def _unet_blocks(rng, c_in, c_out, n_blocks):
     blocks = []
     for j in range(n_blocks):
