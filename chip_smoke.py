@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (any failure raises; exit code != 0):
+It drives both ported F0 paths, rmvpe+ (the main path) and mangio-crepe,
+and holds each of the five kernels against its plain twin. Phases, each
+printing one JSON line (any failure raises; exit code != 0):
   1. card:     nvidia-smi name and power limit, torch/CUDA versions, the
                parallel nvcc build of every kernel from csrc/ and its time.
   2. main:     the main path, as bench.py times it on an accelerator:
@@ -13,24 +15,33 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                index_rate=0.5, protect=0.33, volume_envelope=0.25. One
                warm-up convert, then every kernel's launch count is set to
                0, one timed convert runs, and the counts are read: every
-               kernel must have launched. The output must have the planned
-               length and not be silent.
+               kernel of the path must have launched (all but viterbi).
+               The output must have the planned length and not be silent.
   profile:     one more convert under torch.profiler: the device's busy
                and idle share of the wall time, and kernels by device time.
-  3. kernels:  every kernel's wrapper again on the very inputs the main
-               path gives it (recorded during one more, untimed convert), held
-               against its plain PyTorch twin on the same inputs in the
-               kernel's working precision, with the tolerance printed, and
-               one launch of each conv kernel against one plain conv at
-               fp32 summation order; timed beside the plain twin, a single
-               PyTorch call where one computes the same function, and the
-               bound (bytes over 3.35 TB/s or operations over the peak
-               rate of the operands' type). Per shape numbers included.
-  4. reference: the same full-width model on a 2 s input, on the card
+  crepe:       the same, with full-width CREPE weights
+               (with_crepe=True) and f0_method="mangio-crepe" at hop 128:
+               viterbi launches exactly once a convert, the synthesizer's
+               kernels launch, unet_chain (RMVPE's) does not; then its
+               profile (crepe_profile), with each CREPE layer's conv and
+               epilogue timed alone on one 2,048-frame slab.
+  3. kernels:  every kernel's wrapper again on the very inputs its path
+               gives it (recorded during one more, untimed convert of each
+               path), held against its plain PyTorch twin on the same inputs
+               in the kernel's working precision, with the tolerance
+               printed (the Viterbi path exactly), and one launch of each
+               conv kernel against one plain conv at fp32 summation order;
+               timed beside the plain twin, a single PyTorch call where one
+               computes the same function, and the bound (bytes over
+               3.35 TB/s or operations over the peak rate of the operands'
+               type). Per shape numbers included.
+  4. reference: the same full-width models on a 2 s input, on the card
                (bf16) and on the CPU (float32 plain twins), same noise.
-               The two F0 passes agree on >= 90% of coarse bins, and on
-               one F0 (as tests/test_quality.py pins it) the renditions
-               stay below the repo's 0.5 dB mel-distortion gate.
+               The two rmvpe+ F0 passes agree on >= 90% of coarse bins, and
+               on one F0 (as tests/test_quality.py pins it) the renditions
+               stay below the repo's 0.5 dB mel-distortion gate. The two
+               mangio-crepe F0 passes (float16 salience on both) stay in
+               the bf16 bounds of tests/test_f0_methods.py.
 Then the {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -77,14 +88,16 @@ class Recorder:
         ("conv_transpose", "polgen_rvc_tpu_torch.models.nsf", "conv_transpose1d"),
         ("band_attention", "polgen_rvc_tpu_torch.models.synthesizer", "band_attention"),
         ("unet_chain", "polgen_rvc_tpu_torch.models.rmvpe", "convblock_chain"),
+        ("viterbi", "polgen_rvc_tpu_torch.models.crepe", "viterbi_path"),
     )
 
-    def __init__(self):
+    def __init__(self, names=None):
         import importlib
 
-        self.calls = {name: {} for name, _, _ in self.SITES}
+        sites = [s for s in self.SITES if names is None or s[0] in names]
+        self.calls = {name: {} for name, _, _ in sites}
         self._saved = []
-        for name, mod_name, attr in self.SITES:
+        for name, mod_name, attr in sites:
             mod = importlib.import_module(mod_name)
             fn = getattr(mod, attr)
             self._saved.append((mod, attr, fn))
@@ -179,6 +192,39 @@ def profile_convert(vc, song, opts) -> dict:
             "kernels": kernels}
 
 
+def crepe_layer_times(params, compute_dtype) -> list:
+    """Each CREPE layer on one full 2,048-frame slab (random frames): the
+    cuDNN conv alone, with its rate, and the fp32 epilogue after it
+    (upcast, bias, ReLU, affine, pool), as models/crepe.py runs them."""
+    import torch
+    import torch.nn.functional as F
+
+    from polgen_rvc_tpu_torch.models.crepe import FULL_LAYERS
+    from polgen_rvc_tpu_torch.pipeline.crepe_method import _FRAME_BUCKET
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(_FRAME_BUCKET, 1, 1024, device="cuda", generator=g)
+    rows = []
+    for i, (p, (c_out, k, stride, pt, pb)) in enumerate(zip(params["convs"], FULL_LAYERS)):
+        xin = F.pad(x, (pt, pb)).to(compute_dtype)
+        w = p["w_conv"]
+        conv_ms = cuda_ms(lambda: F.conv1d(xin, w, stride=stride), reps=3)
+        y = F.conv1d(xin, w, stride=stride)
+
+        def epilogue():
+            z = y.float().add_(p["b"][:, None]).relu_()
+            return F.max_pool1d(z.mul_(p["s"][:, None]).add_(p["t"][:, None]), 2)
+
+        epi_ms = cuda_ms(epilogue, reps=3)
+        flops = 2.0 * _FRAME_BUCKET * c_out * xin.shape[1] * k * y.shape[-1]
+        rows.append({"layer": i + 1, "c_in": xin.shape[1], "c_out": c_out, "k": k,
+                     "rows_out": y.shape[-1], "conv_ms": conv_ms,
+                     "conv_tflop_per_s": flops / conv_ms / 1e9, "epilogue_ms": epi_ms})
+        x = epilogue()
+        del xin, y
+    return rows
+
+
 def packed_tensors(tree, keys=("w_taps", "w_mat", "b")):
     """The tensors a kernel reads from a packed parameter tree: the packed
     weight layouts and the biases (not the fp32 originals beside them)."""
@@ -200,13 +246,32 @@ def abs_stats(ref) -> dict:
     return {"max_abs_ref": float(a.max()), "median_abs_ref": float(a.median())}
 
 
-def check_kernels(rec: Recorder) -> dict:
-    """Phase 3: kernel vs plain twin on every recorded main-path input.
+def structured_log_obs(t: int, n: int, seed: int = 0):
+    """(t, 360) Viterbi log observations: a random-walk peak over low noise,
+    masked edges, a block of all-tie frames, garbage rows past n."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    probs = rng.random((t, 360)).astype(np.float32) * 0.01
+    c = np.clip(180 + np.cumsum(rng.integers(-3, 4, t)), 0, 359)
+    probs[np.arange(t), c] = 0.9
+    probs[:, :40] = 0.0
+    probs[:, 300:] = 0.0
+    probs[t // 3:t // 3 + 20] = 0.0
+    probs[n:] = rng.random((t - n, 360)).astype(np.float32)
+    obs = probs / np.maximum(probs.sum(1, keepdims=True), 1e-20)
+    return torch.from_numpy(np.log(obs + 1e-20).astype(np.float32))
+
+
+def check_kernels(calls: dict) -> dict:
+    """Phase 3: kernel vs plain twin on every recorded input of its path
+    (calls: Recorder.calls of both paths' recorders).
 
     Each kernel is held to its plain twin over its whole call (a resblock
     group of 18 convs, a U-Net level of 8) in the kernel's working
     precision, and one launch of it (one conv, the same bf16-rounded
-    operands both sides) to a single plain conv at fp32 summation order."""
+    operands both sides) to a single plain conv at fp32 summation order.
+    The Viterbi path must equal the twin's exactly."""
     import torch
     import torch.nn.functional as F
 
@@ -214,6 +279,7 @@ def check_kernels(rec: Recorder) -> dict:
     from polgen_rvc_tpu_torch.ops import conv_transpose as ct
     from polgen_rvc_tpu_torch.ops import resblock_group as rg
     from polgen_rvc_tpu_torch.ops import unet_chain as uc
+    from polgen_rvc_tpu_torch.ops import viterbi as vt
 
     bf16 = torch.bfloat16
     out = {}
@@ -250,11 +316,11 @@ def check_kernels(rec: Recorder) -> dict:
                             "tolerance": tol, **abs_stats(ref), "ms": ms,
                             "plain_ms": plain_ms, "library_ms": lib_ms,
                             "bound_ms": max(bytes_ms, ops_ms),
-                            "peak": dtype, "single_launch": one})
+                            "peak": dtype, "checks": one})
         if not err <= tol:
             raise AssertionError(f"{name} {shape}: max_abs_err {err} > {tol}")
 
-    for e in rec.calls["resblock_group"].values():
+    for e in calls["resblock_group"].values():
         x, params, ks, ds = e["args"]
         b, c, t = x.shape
         x32 = x.float().contiguous()
@@ -277,7 +343,7 @@ def check_kernels(rec: Recorder) -> dict:
                                                     operand_dtype=bf16)),
             None, flops, byts, bf16, e["count"], [b, c, t], one)
 
-    for e in rec.calls["conv_transpose"].values():
+    for e in calls["conv_transpose"].values():
         x, w, bias = e["args"][:3]
         kw = e["kwargs"]
         geo = dict(stride=kw["stride"], padding=kw["padding"])
@@ -297,7 +363,7 @@ def check_kernels(rec: Recorder) -> dict:
             nbytes(x, kw["taps"], bias) + b * c_out * t * kw["stride"] * x.element_size(),
             bf16, e["count"], [b, c_in, c_out, t, kw["stride"]])
 
-    for e in rec.calls["band_attention"].values():
+    for e in calls["band_attention"].values():
         q, k, v, rk, rv, lens, window = e["args"]
         bh, t, dk = q.shape
         # compare in fp32 out (the kernel rounds fp32 inputs to its bf16
@@ -341,7 +407,7 @@ def check_kernels(rec: Recorder) -> dict:
             {"rel_value_term": {"max_abs_err": band_err, "tolerance": band_tol,
                                 **abs_stats(band_ref * valid)}})
 
-    for e in rec.calls["unet_chain"].values():
+    for e in calls["unet_chain"].values():
         x, blocks = e["args"]
         b, c, t, w = x.shape
         x32 = x.float().contiguous()
@@ -373,7 +439,77 @@ def check_kernels(rec: Recorder) -> dict:
             nbytes(x, *packed_tensors(blocks)) + b * c_out * t * w * x.element_size(),
             bf16, e["count"], [b, c, c_out, t, w],
             {"conv1": one1, "conv2": one2})
+
+    for e in calls["viterbi"].values():
+        log_obs, n = e["args"]
+        t_len, bins = log_obs.shape
+        got = vt.viterbi_path(log_obs, n)
+        ref = vt.viterbi_path_plain(log_obs, n)
+        mismatches = int((got != ref).sum())
+        # per step and bin: 23 candidate adds and compares, the teleport
+        # compare, + obs, the block max's compare and the renorm subtract,
+        # over the n - 1 steps this input runs; log_obs rows < n read once,
+        # the int32 path written once
+        steps = max(min(n, t_len) - 1, 0)
+        add("viterbi", float((got - ref).abs().max()), 0.0, ref,
+            cuda_ms(lambda: vt.viterbi_path(log_obs, n)),
+            cuda_ms(lambda: vt.viterbi_path_plain(log_obs, n), reps=1),
+            None, 50.0 * steps * bins, min(n, t_len) * bins * 4 + t_len * 4,
+            torch.float32, e["count"], [t_len, bins, n],
+            {"path_mismatches": mismatches})
+        # random CREPE weights give a path that barely moves: the same shape
+        # again on a random-walk track with all-tie frames (not a launch of
+        # the path, so it adds to no per-convert total)
+        walk = structured_log_obs(t_len, n).to(log_obs.device)
+        got, ref = vt.viterbi_path(walk, n), vt.viterbi_path_plain(walk, n)
+        add("viterbi", float((got - ref).abs().max()), 0.0, ref,
+            cuda_ms(lambda: vt.viterbi_path(walk, n)),
+            cuda_ms(lambda: vt.viterbi_path_plain(walk, n), reps=1), None, 0.0, 0.0,
+            torch.float32, 0, [t_len, bins, n, "random walk"],
+            {"path_mismatches": int((got != ref).sum()),
+             "distinct_bins": int(ref.unique().numel())})
     return out
+
+
+def drive(vc, song, opts, wrappers: dict) -> dict:
+    """One warm-up convert; then every kernel's launch count set to 0, one
+    timed convert, the counts read. Returns its numbers and output."""
+    import torch
+
+    t0 = time.perf_counter()
+    vc.convert(song, opts)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, sr = vc.convert(song, opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"warmup_s": warm_s, "wall_s": wall,
+            "realtime_factor": SONG_SECONDS / wall,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": {name: fn.launches for name, fn in wrappers.items()},
+            "out": out, "sr": sr}
+
+
+def check_output(run: dict, expected: int, path: str, launched, idle):
+    """The path's output has the planned length and is not silent; the
+    kernels in `launched` ran in its timed convert, those in `idle` not."""
+    out, sr = run["out"], run["sr"]
+    if out.shape[0] != expected or sr != 48000:
+        raise AssertionError(f"{path}: output {out.shape[0]} samples @ {sr}, "
+                             f"expected {expected} @ 48000")
+    if int(np.abs(out.astype(np.int32)).max()) < 1000 or not np.all(np.isfinite(out)):
+        raise AssertionError(f"{path}: output is silent")
+    missing = [k for k in launched if run["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing}")
+    extra = [k for k in idle if run["launches"][k] != 0]
+    if extra:
+        raise AssertionError(f"{path}: kernels of another path launched: {extra}")
 
 
 def main() -> int:
@@ -383,7 +519,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from polgen_rvc_tpu_torch.ops import (
-        band_attention, conv_transpose, cuda_build, resblock_group, unet_chain,
+        band_attention, conv_transpose, cuda_build, resblock_group, unet_chain, viterbi,
     )
     from polgen_rvc_tpu_torch.ops.filters import highpass_pad_quant
     from polgen_rvc_tpu_torch.pipeline.chunking import plan_chunks
@@ -406,7 +542,14 @@ def main() -> int:
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_s": build_s, "ptxas": ptxas})
 
-    # ---- main path -------------------------------------------------------
+    wrappers = {"resblock_group": resblock_group.fused_resblock_group,
+                "conv_transpose": conv_transpose.conv_transpose1d,
+                "band_attention": band_attention.band_attention,
+                "unet_chain": unet_chain.convblock_chain,
+                "viterbi": viterbi.viterbi_path}
+    synth_kernels = ("resblock_group", "conv_transpose", "band_attention")
+
+    # ---- main path (rmvpe+) ------------------------------------------------
     eng = EngineConfig(**BENCH_TIERS, compute_dtype="bfloat16")
     t0 = time.perf_counter()
     vc = build_synthetic_converter(tiny=False, sr=48000, index_vectors=65536,
@@ -414,25 +557,7 @@ def main() -> int:
     setup_s = time.perf_counter() - t0
     song = bench_song(SONG_SECONDS)
     opts = ConversionOptions(**BENCH_OPTS)
-    t0 = time.perf_counter()
-    vc.convert(song, opts)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-
-    wrappers = {"resblock_group": resblock_group.fused_resblock_group,
-                "conv_transpose": conv_transpose.conv_transpose1d,
-                "band_attention": band_attention.band_attention,
-                "unet_chain": unet_chain.convblock_chain}
-    for fn in wrappers.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out, sr = vc.convert(song, opts)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    peak = torch.cuda.max_memory_allocated()
+    run = drive(vc, song, opts, wrappers)
     profile = profile_convert(vc, song, opts)
     # one more, untimed convert records each kernel's main-path inputs
     rec = Recorder()
@@ -447,36 +572,62 @@ def main() -> int:
     expected = sum(
         max(min((c.slice_end - c.slice_start) // eng.window,
                 2 * vc.hubert_cfg.num_frames(c.slice_end - c.slice_start))
-            * upp - 2 * sr * eng.x_pad, 0)
+            * upp - 2 * run["sr"] * eng.x_pad, 0)
         for c in plan.chunks
     )
     main = {"phase": "main", "seconds_audio": SONG_SECONDS, "chunks": len(plan.chunks),
-            "setup_s": setup_s, "warmup_s": warm_s, "wall_s": wall,
-            "realtime_factor": SONG_SECONDS / wall, "max_memory_allocated": peak,
-            "out_samples": int(out.shape[0]), "expected_samples": expected,
-            "sr": sr, "peak_int16": int(np.abs(out.astype(np.int32)).max()),
-            "launches": launches, "card": smi}
+            "setup_s": setup_s, **{k: v for k, v in run.items() if k != "out"},
+            "out_samples": int(run["out"].shape[0]), "expected_samples": expected,
+            "peak_int16": int(np.abs(run["out"].astype(np.int32)).max()), "card": smi}
     emit(main)
     emit({"phase": "profile", **{k: v for k, v in profile.items() if k != "kernels"},
           "top": profile["kernels"][:8]})
-    if out.shape[0] != expected or sr != 48000:
-        raise AssertionError(f"output {out.shape[0]} samples @ {sr}, expected "
-                             f"{expected} @ 48000")
-    if main["peak_int16"] < 1000 or not np.all(np.isfinite(out)):
-        raise AssertionError("main-path output is silent")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    check_output(run, expected, "main path",
+                 launched=(*synth_kernels, "unet_chain"), idle=("viterbi",))
+    launches = dict(run["launches"])
+    del vc, run
 
-    # ---- kernels at the main path's inputs --------------------------------
-    kernels = check_kernels(rec)
-    del rec
+    # ---- mangio-crepe path -------------------------------------------------
+    t0 = time.perf_counter()
+    cvc = build_synthetic_converter(tiny=False, sr=48000, index_vectors=65536,
+                                    engine=eng, device="cuda", with_crepe=True)
+    setup_s = time.perf_counter() - t0
+    copts = ConversionOptions(f0_method="mangio-crepe", **BENCH_OPTS)
+    crun = drive(cvc, song, copts, wrappers)
+    cprofile = profile_convert(cvc, song, copts)
+    crec = Recorder(names=("viterbi",))
+    try:
+        cvc.convert(song, copts)
+    finally:
+        crec.restore()
+    padded_len = highpass_pad_quant(song, eng.t_pad, eng.window)[3]
+    emit({"phase": "crepe", "seconds_audio": SONG_SECONDS, "hop_length": copts.hop_length,
+          "crepe_frames": padded_len // copts.hop_length + 1, "setup_s": setup_s,
+          **{k: v for k, v in crun.items() if k != "out"},
+          "out_samples": int(crun["out"].shape[0]), "expected_samples": expected,
+          "peak_int16": int(np.abs(crun["out"].astype(np.int32)).max()), "card": smi})
+    emit({"phase": "crepe_profile",
+          **{k: v for k, v in cprofile.items() if k != "kernels"},
+          "top": cprofile["kernels"][:12],
+          "slab_layers": crepe_layer_times(cvc.crepe_params, cvc.compute_dtype)})
+    check_output(crun, expected, "mangio-crepe path",
+                 launched=(*synth_kernels, "viterbi"), idle=("unet_chain",))
+    if crun["launches"]["viterbi"] != 1:
+        raise AssertionError(f"viterbi launched {crun['launches']['viterbi']} "
+                             "times in one mangio-crepe convert, not once")
+    launches["viterbi"] = crun["launches"]["viterbi"]
+    del cvc, crun
+
+    # ---- kernels at their paths' inputs ------------------------------------
+    kernels = check_kernels({**rec.calls, **crec.calls})
+    del rec, crec
     emit({"phase": "kernels", "detail": kernels})
 
     # ---- reference on a small input ---------------------------------------
     small = dict(x_pad=1, x_query=2, x_center=3, x_max=4, chunk_batch=1,
                  bucket_step_s=2)
-    model = synthetic_params(tiny=False, sr=48000, index_vectors=4096, seed=0)
+    *model, crepe_params = synthetic_params(tiny=False, sr=48000, index_vectors=4096,
+                                            seed=0, with_crepe=True)
     names = ("synth_cfg", "synth_params", "hubert_cfg", "hubert_params",
              "rmvpe_params", "index_bank")
 
@@ -487,19 +638,35 @@ def main() -> int:
     small_song = bench_song(2.0)
     convs = {dev: VoiceConverter(**dict(zip(names, model)), device=dev,
                                  engine=EngineConfig(**small, compute_dtype=dtype),
-                                 noise_provider=cpu_noise)
+                                 noise_provider=cpu_noise, crepe_params=crepe_params)
              for dev, dtype in (("cuda", "bfloat16"), ("cpu", "float32"))}
-    _, qbuf, inv_scale, _ = highpass_pad_quant(small_song, small["x_pad"] * 16000)
-    f0 = {dev: [a.cpu() for a in vc.compute_f0(
-              torch.from_numpy(qbuf).to(vc.device).float() * float(inv_scale), opts)]
+    _, qbuf, inv_scale, padded_len = highpass_pad_quant(small_song, small["x_pad"] * 16000)
+    bufs = {dev: torch.from_numpy(qbuf).to(vc.device).float() * float(inv_scale)
+            for dev, vc in convs.items()}
+    f0 = {dev: [a.cpu() for a in vc.compute_f0(bufs[dev], opts)]
           for dev, vc in convs.items()}
     coarse_equal = float((f0["cuda"][0] == f0["cpu"][0]).float().mean())
+    # mangio-crepe: bf16 conv operands on the card, fp32 on the CPU, the
+    # float16 salience on both; tests/test_f0_methods.py's bf16 bounds
+    cf0 = {dev: [a.cpu().numpy() for a in vc.compute_f0(bufs[dev], copts, padded_len)]
+           for dev, vc in convs.items()}
+    p_len = padded_len // 160
+    pf_card, pf_cpu = cf0["cuda"][1][:p_len], cf0["cpu"][1][:p_len]
+    rel = np.abs(pf_card - pf_cpu) / np.maximum(np.abs(pf_cpu), 1.0)
+    d = np.abs(cf0["cuda"][0][:p_len] - cf0["cpu"][0][:p_len])
+    crepe_ref = {"frames": p_len, "median_rel": float(np.median(rel)),
+                 "share_rel_below_2e-2": float(np.mean(rel < 2e-2)),
+                 "coarse_max_abs_diff": int(d.max()),
+                 "share_coarse_within_1": float(np.mean(d <= 1)),
+                 "voiced_share_cpu": float(np.mean(pf_cpu > 0)),
+                 "gates": {"median_rel": 3e-3, "share_rel_below_2e-2": 0.95,
+                           "coarse_max_abs_diff": 3, "share_coarse_within_1": 0.95}}
     # the rest of the path on one F0, as tests/test_quality.py pins it: the
     # card's bf16-operand U-Net flips near-threshold voicing decisions of a
     # random-weight RMVPE against the CPU's fp32 twin
     renditions = {}
     for dev, vc in convs.items():
-        vc.compute_f0 = (lambda buf, o, d=vc.device:
+        vc.compute_f0 = (lambda buf, o, padded=None, d=vc.device:
                          tuple(a.to(d) for a in f0["cpu"]))
         renditions[dev], _ = vc.convert(small_song, opts)
     dist = mel_distortion_db(renditions["cuda"], renditions["cpu"], 48000)
@@ -508,17 +675,22 @@ def main() -> int:
                                               int(renditions["cpu"].shape[0])],
           "f0_coarse_equal_frac": coarse_equal, "f0_gate": 0.9,
           "mel_distortion_db_same_f0": dist, "gate_db": 0.5,
-          "script_s_so_far": time.perf_counter() - t_start})
+          "crepe_f0": crepe_ref, "script_s_so_far": time.perf_counter() - t_start})
     if renditions["cuda"].shape != renditions["cpu"].shape or not dist < 0.5:
         raise AssertionError(f"card vs CPU reference: {dist} dB")
     if not coarse_equal >= 0.9:
         raise AssertionError(f"card vs CPU coarse F0 agree on {coarse_equal}")
+    if not (crepe_ref["median_rel"] < 3e-3 and crepe_ref["share_rel_below_2e-2"] > 0.95
+            and crepe_ref["coarse_max_abs_diff"] <= 3
+            and crepe_ref["share_coarse_within_1"] > 0.95):
+        raise AssertionError(f"card vs CPU mangio-crepe F0: {crepe_ref}")
 
     sources = {
         "resblock_group": "polgen_rvc_tpu/ops/pallas_resblock.py:176",
         "conv_transpose": "polgen_rvc_tpu/ops/pallas_convtranspose.py:60",
         "band_attention": "polgen_rvc_tpu/ops/flash_relattn.py:128",
         "unet_chain": "polgen_rvc_tpu/ops/pallas_unet2d.py:216",
+        "viterbi": "polgen_rvc_tpu/ops/pallas_viterbi.py:137",
     }
     line = {"kernels": [
         {"name": name, "route": "cuda",

@@ -1,5 +1,5 @@
-"""PolGen-RVC on PyTorch and CUDA: the rmvpe+ voice-conversion path for one
-NVIDIA H100 (sm_90a).
+"""PolGen-RVC on PyTorch and CUDA: the rmvpe+ and mangio-crepe
+voice-conversion paths for one NVIDIA H100 (sm_90a).
 
 A second implementation of the system beside the JAX package, held against
 it by the tests. It imports torch, numpy and scipy, never jax, and keeps its
@@ -7,17 +7,18 @@ own copy of every helper it needs.
 
 Layer map (mirrors the JAX package so each counterpart is easy to find):
     ops/        torch-semantics convs, STFT/mel, GRU, F0 decode, high-pass,
-                and the four hand-written CUDA kernels with their plain twins
+                and the five hand-written CUDA kernels with their plain twins
     csrc/       the kernels' CUDA C++ sources, built with nvcc at first use
-    models/     synthesizer / NSF decoder / HuBERT / RMVPE as functions of
-                parameter dictionaries
+    models/     synthesizer / NSF decoder / HuBERT / RMVPE / CREPE as
+                functions of parameter dictionaries
     convert/    synthetic checkpoints and state-dict -> parameter dictionaries
     retrieval/  exact top-k feature retrieval
     pipeline/   chunk planner, converter engine, output path, builders
 
 Precision: float32 matmuls and convolutions run in full float32 (TF32 off,
-set by ``resolve_device``). The F0 pass and the VITS latent run in float32;
-everything else follows ``EngineConfig.compute_dtype``.
+set by ``resolve_device``). The F0 pass and the VITS latent run in float32
+(CREPE's conv operands excepted, as in the JAX package); everything else
+follows ``EngineConfig.compute_dtype``.
 """
 
 from __future__ import annotations

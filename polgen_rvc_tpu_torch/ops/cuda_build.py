@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("resblock_group", "conv_transpose", "band_attention", "unet_chain")
+KERNELS = ("resblock_group", "conv_transpose", "band_attention", "unet_chain",
+           "viterbi")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

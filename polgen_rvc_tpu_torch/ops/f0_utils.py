@@ -30,6 +30,11 @@ def bin_cents_table() -> np.ndarray:
     return (20.0 * np.arange(N_PITCH_BINS) + CENTS_OFFSET).astype(np.float32)
 
 
+def cents_to_hz(cents):
+    """Cents -> Hz for a numpy array or a tensor, in the input's precision."""
+    return 10.0 * (2.0 ** (cents / 1200.0))
+
+
 def local_average_cents(salience, threshold: float = 0.03):
     """(..., T, 360) salience -> cents: weighted mean over the 9 bins around
     the argmax (first index on ties), zero where the peak <= threshold."""

@@ -1,9 +1,10 @@
 """The conversion engine: the port of polgen_rvc_tpu/pipeline/engine.py's
-``VoiceConverter.convert`` on the rmvpe+ path, in eager PyTorch on one
-device.
+``VoiceConverter.convert`` on the rmvpe+ and mangio-crepe F0 paths, in
+eager PyTorch on one device.
 
 Per song: host high-pass, reflect pad and int16 quantize (one upload);
-quiet-point chunk planning; one full-signal RMVPE F0 pass (fp32). Per
+quiet-point chunk planning; one full-signal F0 pass: RMVPE (fp32), or
+CREPE (conv operands in the compute dtype, decode in fp32). Per
 batch of ``chunk_batch`` chunks, padded to that batch's own bucket: HuBERT
 -> top-k retrieval blend -> 2x frame repeat -> protect mix -> synthesizer,
 then the pad trim. Last, the RMS-envelope gain, per-chunk int16 pack and
@@ -26,6 +27,7 @@ import torch
 
 from .. import resolve_device
 from ..convert.params import params_to_torch
+from ..models.crepe import pack_crepe_weights
 from ..models.hubert import HubertConfig, hubert_extract
 from ..models.nsf import pack_decoder_weights
 from ..models.rmvpe import pack_rmvpe_weights, pad_frames_to_32, rmvpe_mel, rmvpe_salience
@@ -35,6 +37,7 @@ from ..ops.filters import highpass_pad_quant
 from ..retrieval.topk import retrieval_blend
 from .chunking import plan_chunks
 from .config import ConversionOptions, EngineConfig
+from .crepe_method import crepe_f0
 from .output import change_rms, finalize_int16, pack_int16, rows_to_audio
 
 # (seed, chunk id, latent shape (C, frames), nsf length, device)
@@ -53,16 +56,18 @@ def torch_noise(seed: int, chunk_id: int, lat_shape: tuple, nsf_len: int,
 
 
 class VoiceConverter:
-    """rmvpe+ voice conversion over one (synthesizer, HuBERT, RMVPE, index)
-    model set. Parameters arrive as numpy dictionaries (the convert/
-    builders' output) and live on ``device`` in float32, with the kernels'
-    packed weight layouts beside them."""
+    """Voice conversion over one (synthesizer, HuBERT, RMVPE, index) model
+    set, plus CREPE weights for the mangio-crepe method. Parameters arrive
+    as numpy dictionaries (the convert/ builders' output) and live on
+    ``device`` in float32, with the kernels' packed weight layouts and the
+    CREPE convs' compute-dtype operands beside them."""
 
     def __init__(self, *, synth_cfg: SynthesizerConfig, synth_params: dict,
                  hubert_cfg: HubertConfig, hubert_params: dict,
                  rmvpe_params: dict, index_bank: Optional[np.ndarray] = None,
                  engine: EngineConfig = EngineConfig(), device=None,
-                 noise_provider: NoiseProvider = torch_noise):
+                 noise_provider: NoiseProvider = torch_noise,
+                 crepe_params: Optional[dict] = None):
         if not synth_cfg.use_f0:
             raise NotImplementedError("the no-f0 generator is not ported yet")
         self.device = resolve_device(device)
@@ -80,6 +85,8 @@ class VoiceConverter:
         self.rmvpe_params = pack_rmvpe_weights(params_to_torch(rmvpe_params, self.device))
         self.index_bank = (None if index_bank is None
                            else params_to_torch(np.asarray(index_bank), self.device))
+        self.crepe_params = (None if crepe_params is None else pack_crepe_weights(
+            params_to_torch(crepe_params, self.device), self.compute_dtype))
 
     # ------------------------------------------------------------------
     # geometry (identical to the JAX engine's)
@@ -131,12 +138,25 @@ class VoiceConverter:
         return rows
 
     # ------------------------------------------------------------------
-    # F0: one full-signal rmvpe+ pass, float32
+    # F0: one full-signal pass
     # ------------------------------------------------------------------
 
-    def compute_f0(self, buf, opts: ConversionOptions):
-        """(bucket,) float32 signal -> (coarse pitch (P,), pitchf (P,)) with
-        P = bucket // 160 + 1 frames."""
+    def compute_f0(self, buf, opts: ConversionOptions,
+                   padded_len: Optional[int] = None):
+        """(bucket,) float32 signal, its first padded_len samples valid ->
+        (coarse pitch (P,), pitchf (P,)) with P = bucket // 160 + 1 frames.
+        mangio-crepe needs padded_len; rmvpe+ reads the whole bucket."""
+        if opts.f0_method == "mangio-crepe":
+            if self.crepe_params is None:
+                raise RuntimeError(
+                    "crepe weights not loaded (assets/predictors/crepe_full.pth)")
+            if padded_len is None:
+                raise ValueError("mangio-crepe needs the padded signal length")
+            return crepe_f0(self.crepe_params, buf, padded_len, opts,
+                            window=self.engine.window,
+                            compute_dtype=self.compute_dtype)
+        if opts.f0_method not in ("rmvpe+", "rmvpe"):
+            raise NotImplementedError(f"f0 method {opts.f0_method!r} is not ported yet")
         mel, n = pad_frames_to_32(rmvpe_mel(buf[None].float()))
         sal = rmvpe_salience(self.rmvpe_params, mel)[:, :n]
         f0_raw = salience_to_f0(sal, 0.03)
@@ -225,17 +245,15 @@ class VoiceConverter:
     def convert(self, audio16k: np.ndarray,
                 opts: ConversionOptions = ConversionOptions()):
         """Float mono 16 kHz -> (int16 audio, output sample rate)."""
-        if opts.f0_method not in ("rmvpe+", "rmvpe"):
-            raise NotImplementedError(f"f0 method {opts.f0_method!r} is not ported yet")
         if opts.f0_file or opts.resample_sr:
             raise NotImplementedError("f0 files and output resampling are not ported yet")
         eng, dev = self.engine, self.device
-        audio, qbuf, inv_scale, _ = highpass_pad_quant(
+        audio, qbuf, inv_scale, padded_len = highpass_pad_quant(
             np.asarray(audio16k, np.float64), eng.t_pad, eng.window
         )
         plan = plan_chunks(audio, eng)
         buf = torch.from_numpy(qbuf).to(dev).float() * float(inv_scale)
-        pitch_full, pitchf_full = self.compute_f0(buf, opts)
+        pitch_full, pitchf_full = self.compute_f0(buf, opts, padded_len)
 
         use_index = self.index_bank is not None and opts.index_rate > 0
         use_protect = opts.protect < 0.5

@@ -8,8 +8,8 @@ test, never at import). On a machine with a card and nvcc, run
 (``--noconftest``: the shared conftest imports jax, which the port's
 machine need not have; this file imports neither jax nor the JAX package.)
 The shapes here are the edges the main path does not reach: ragged tiles,
-every upsample rate, every mel width, dk below the tile. Inputs are made
-with numpy from a seed; each tolerance says why.
+every upsample rate, every mel width, dk below the tile, Viterbi ties and
+lengths. Inputs are made with numpy from a seed; each tolerance says why.
 """
 
 import numpy as np
@@ -20,6 +20,7 @@ from polgen_rvc_tpu_torch.ops import band_attention as ba
 from polgen_rvc_tpu_torch.ops import conv_transpose as ct
 from polgen_rvc_tpu_torch.ops import resblock_group as rg
 from polgen_rvc_tpu_torch.ops import unet_chain as uc
+from polgen_rvc_tpu_torch.ops import viterbi as vt
 
 pytestmark = pytest.mark.cuda
 
@@ -174,3 +175,71 @@ def test_unet_chain_kernel(dev, c_in, c_out, t, w):
     assert n == 4 and got.shape == (1, c_out, t, w)
     # bf16 operands both sides; one-ulp re-rounding between the 4 convs
     assert float((got - ref).abs().max()) <= 1e-2 * float(ref.abs().max())
+
+
+def _viterbi_log_obs(rng, t, n, plateau):
+    """A random-walk peak over low noise, masked edges, all-tie frames and
+    garbage rows past n (the CPU tests' cases, any length)."""
+    probs = rng.random((t, 360)).astype(np.float32) * 0.01
+    c = np.clip(100 + np.cumsum(rng.integers(-3, 4, t)), 0, 359)
+    probs[np.arange(t), c] = 0.9
+    probs[:, :40] = 0.0
+    probs[:, 300:] = 0.0
+    if plateau:
+        probs[50:70, :] = 0.0
+    if n < t:
+        probs[n:] = rng.random((t - n, 360)).astype(np.float32)
+    obs = probs / np.maximum(probs.sum(1, keepdims=True), 1e-20)
+    return np.log(obs + 1e-20).astype(np.float32)
+
+
+def _viterbi_tie(m_bin, plateau):
+    """Step 1 meets an exact fp32 tie between the teleport candidate from
+    m_bin and bin `plateau`'s in-band best (see test_torch_crepe.py)."""
+    bc = vt.band_table()[plateau, 11]
+    target = np.float32(np.float32(vt.LOG_INIT + np.float32(0.0)) + vt.LOG_EPS)
+    x = np.float32(target - bc - vt.LOG_INIT)
+    for _ in range(64):
+        v = np.float32(np.float32(vt.LOG_INIT + x) + bc)
+        if v == target:
+            break
+        x = np.nextafter(x, np.float32(np.inf if v < target else -np.inf),
+                         dtype=np.float32)
+    lo = np.full((3, 360), -100.0, np.float32)
+    lo[0, m_bin] = 0.0
+    lo[0, plateau - 15:plateau + 16] = x
+    lo[1:, plateau] = 0.0
+    return lo
+
+
+@pytest.mark.parametrize("case", ["240/240", "240/224/plateau", "130/111",
+                                  "64/64/plateau", "1/1", "2/1", "tie/0/200",
+                                  "tie/359/100", "20000/19001"])
+def test_viterbi_kernel(dev, case):
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case.startswith("tie"):
+        lo, n = _viterbi_tie(*(int(v) for v in case.split("/")[1:])), 3
+    else:
+        t, n = (int(v) for v in case.split("/")[:2])
+        lo = _viterbi_log_obs(rng, t, n, case.endswith("plateau"))
+    got, k = _launched(vt.viterbi_path, lambda: vt.viterbi_path(_t(lo, dev), n))
+    # the plain twin, which the CPU tests hold to JAX's scan and Pallas
+    # paths: only fp32 adds, compares and subtracts, so exactly equal
+    ref = vt.viterbi_path(torch.from_numpy(lo), n)
+    assert k == 1 and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_viterbi_kernel_matches_twin_on_the_card(dev):
+    rng = np.random.default_rng(11)
+    lo = _t(_viterbi_log_obs(rng, 700, 650, True), dev)
+    assert torch.equal(vt.viterbi_path(lo, 650), vt.viterbi_path_plain(lo, 650))
+
+
+@pytest.mark.parametrize("bad", ["float64", "361 bins", "non-contiguous"])
+def test_viterbi_rejects(dev, bad):
+    lo = {"float64": lambda: torch.zeros(8, 360, dtype=torch.float64, device=dev),
+          "361 bins": lambda: torch.zeros(8, 361, device=dev),
+          "non-contiguous": lambda: torch.zeros(360, 8, device=dev).T}[bad]()
+    with pytest.raises(ValueError):
+        vt.viterbi_path(lo, 8)

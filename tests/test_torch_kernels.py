@@ -352,8 +352,30 @@ def _bad_unet_chain():
     convblock_chain(torch.zeros(1, 2, 4, 8), [blk])  # no 1x1 shortcut for 2 -> 16
 
 
+def _bad_viterbi_bins():
+    from polgen_rvc_tpu_torch.ops.viterbi import viterbi_path
+    viterbi_path(torch.zeros(8, 361), 8)
+
+
+def _bad_viterbi_dtype():
+    from polgen_rvc_tpu_torch.ops.viterbi import viterbi_path
+    viterbi_path(torch.zeros(8, 360, dtype=torch.float64), 8)
+
+
+def _bad_viterbi_layout():
+    from polgen_rvc_tpu_torch.ops.viterbi import viterbi_path
+    viterbi_path(torch.zeros(360, 8).T, 8)  # a non-contiguous view
+
+
+def _bad_viterbi_width():
+    from polgen_rvc_tpu_torch.ops.viterbi import viterbi_path
+    viterbi_path(torch.zeros(8, 360), 8, width=13)
+
+
 @pytest.mark.parametrize("call", [_bad_resblock, _bad_conv_transpose,
-                                  _bad_band_attention, _bad_unet_chain])
+                                  _bad_band_attention, _bad_unet_chain,
+                                  _bad_viterbi_bins, _bad_viterbi_dtype,
+                                  _bad_viterbi_layout, _bad_viterbi_width])
 def test_kernel_wrappers_reject_shapes_that_do_not_fit(call):
     """Shapes are checked before any dispatch: the kernels take raw
     pointers, so a mismatch must raise rather than read out of bounds."""

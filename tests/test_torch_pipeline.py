@@ -163,7 +163,7 @@ def test_kernel_wrappers_import_and_run_plain_without_nvcc(monkeypatch):
     """The kernel modules import with no nvcc; on CPU tensors the wrappers
     run their plain twins and never build or count a launch."""
     from polgen_rvc_tpu_torch.ops import (
-        band_attention, conv_transpose, cuda_build, resblock_group, unet_chain,
+        band_attention, conv_transpose, cuda_build, resblock_group, unet_chain, viterbi,
     )
 
     def no_build(*a, **k):
@@ -175,7 +175,8 @@ def test_kernel_wrappers_import_and_run_plain_without_nvcc(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build._nvcc()
     wrappers = (resblock_group.fused_resblock_group, conv_transpose.conv_transpose1d,
-                band_attention.band_attention, unet_chain.convblock_chain)
+                band_attention.band_attention, unet_chain.convblock_chain,
+                viterbi.viterbi_path)
     before = [w.launches for w in wrappers]
     g = torch.Generator().manual_seed(0)
     x = torch.randn(1, 32, 20, generator=g)
@@ -196,4 +197,7 @@ def test_kernel_wrappers_import_and_run_plain_without_nvcc(monkeypatch):
             "shortcut": {"w": torch.randn(16, 1, 1, 1, generator=g), "b": torch.zeros(16)}}]
     assert unet_chain.convblock_chain(torch.randn(1, 1, 8, 16, generator=g),
                                       blk).shape == (1, 16, 8, 16)
+    path = viterbi.viterbi_path(torch.randn(12, 360, generator=g), 9)
+    assert path.shape == (12,) and path.dtype == torch.int32
+    assert viterbi.viterbi_path(torch.zeros(0, 360), 0).shape == (0,)
     assert [w.launches for w in wrappers] == before
