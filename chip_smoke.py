@@ -30,7 +30,8 @@ printing one JSON line (any failure raises; exit code != 0):
                path), held against its plain PyTorch twin on the same inputs
                in the kernel's working precision, with the tolerance
                printed (the Viterbi path exactly), and one launch of each
-               conv kernel against one plain conv at fp32 summation order;
+               conv kernel against one plain conv at fp32 summation order
+               (conv-transpose: its fp32 route beside the bf16 one);
                timed beside the plain twin, a single PyTorch call where one
                computes the same function, and the bound (bytes over
                3.35 TB/s or operations over the peak rate of the operands'
@@ -165,7 +166,7 @@ def profile_convert(vc, song, opts) -> dict:
     """One more convert under torch.profiler: the device's busy share of the
     wall time (sum of kernel times; one stream, so kernels do not overlap)
     and the kernels by device time. The port's kernels show under their
-    mangled names (conv1d_mma::kernel, band_attention_kernel,
+    mangled names (conv1d_mma::kernel, convt_kernel, band_attention_kernel,
     unet_conv3x3_kernel)."""
     import torch
     from torch.autograd import DeviceType
@@ -349,10 +350,16 @@ def check_kernels(calls: dict) -> dict:
         geo = dict(stride=kw["stride"], padding=kw["padding"])
         b, c_in, t = x.shape
         c_out, k = w.shape[1], w.shape[2]
-        got = ct.conv_transpose1d(x.float(), w, bias, **kw)
         ref = ct.conv_transpose1d_plain(x.float(), w, bias, operand_dtype=bf16, **geo)
-        err = float((got - ref).abs().max())
-        tol = 1e-4 * float(ref.abs().max()) + 1e-5  # fp32 summation order only
+        # the fp32 route: the same bf16-rounded operands, fp32 order only
+        one = {"fp32_route": single(ct.conv_transpose1d(x.float(), w, bias, **kw), ref)}
+        # the route the decoder takes (x in its dtype, bf16 in a bf16
+        # engine): one rounding of the fp32 result, plus fp32 order
+        got = ct.conv_transpose1d(x, w, bias, **kw).float()
+        limit = 2.0 ** -8 * ref.abs() + 1e-4 * float(ref.abs().max())
+        if not bool(((got - ref).abs() <= limit).all()):
+            raise AssertionError("conv_transpose: error above one rounding of the result")
+        err, tol = float((got - ref).abs().max()), float(limit.max())
         wb, bb = w.to(x.dtype), bias.to(x.dtype)
         add("conv_transpose", err, tol, ref,
             cuda_ms(lambda: ct.conv_transpose1d(x, w, bias, **kw)),
@@ -361,7 +368,7 @@ def check_kernels(calls: dict) -> dict:
             cuda_ms(lambda: F.conv_transpose1d(x, wb, bb, **geo)),
             2.0 * b * c_in * c_out * k * t,
             nbytes(x, kw["taps"], bias) + b * c_out * t * kw["stride"] * x.element_size(),
-            bf16, e["count"], [b, c_in, c_out, t, kw["stride"]])
+            bf16, e["count"], [b, c_in, c_out, t, kw["stride"], str(x.dtype)], one)
 
     for e in calls["band_attention"].values():
         q, k, v, rk, rv, lens, window = e["args"]

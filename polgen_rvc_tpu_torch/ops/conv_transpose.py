@@ -9,11 +9,12 @@ tensor it runs ``conv_transpose1d_plain``. The kernel reads its weights
 as ``pack_phase_taps`` lays them out (bf16), made once when the weights
 load and passed as ``taps``.
 
-Output sample t = m*u + r needs only inputs m-1, m, m+1, so each phase r is
-a 3-tap convolution; ``pack_phase_taps`` gathers the weight taps each
-(phase, input offset) pair uses, with zeros where a tap falls outside the
-kernel. Working precision: bf16 operands, fp32 accumulation, result in x's
-dtype.
+Output sample t = m*u + r draws on input m + d only for the offsets d of
+``phase_taps(u, padding)[r]``: d = 0 always, d = -1 when r < padding,
+d = +1 when r >= u - padding (padding <= u keeps d within -1..1).
+``pack_phase_taps`` lays out exactly those weight taps, phase by phase,
+with no zero blocks. Working precision: bf16 operands, fp32 accumulation
+and bias, the result rounded once to x's dtype.
 """
 
 from __future__ import annotations
@@ -39,25 +40,41 @@ def conv_transpose1d_plain(x, w, b, *, stride: int, padding: int,
     return y.to(x.dtype)
 
 
-def pack_phase_taps(w, stride: int, padding: int):
-    """(C_in, C_out, k) -> (u, 3, C_out, C_in): P[r, d+1, o, c] =
-    w[c, o, r + padding - d*u], zero outside the kernel."""
-    k = w.shape[-1]
-    r = torch.arange(stride, device=w.device)
-    d = torch.arange(-1, 2, device=w.device)
-    j = r[:, None] + padding - d[None, :] * stride  # (u, 3)
-    valid = (j >= 0) & (j < k)
-    taps = w[:, :, j.clamp(0, k - 1)] * valid.to(w.dtype)  # (C_in, C_out, u, 3)
-    return taps.permute(2, 3, 1, 0).contiguous()
+def phase_taps(stride: int, padding: int) -> list[list[int]]:
+    """For each phase r of the output, the input offsets d (ascending) whose
+    weight tap r + padding - d*stride lies inside the kernel."""
+    return [[d for d in (-1, 0, 1)
+             if d == 0 or (d < 0 and r < padding) or (d > 0 and r >= stride - padding)]
+            for r in range(stride)]
 
 
-def conv_transpose1d(x, w, b, *, stride: int, padding: int, taps=None):
-    """x: (B, C_in, T) -> (B, C_out, T * stride); w: (C_in, C_out, k).
-    On a CUDA tensor ``taps`` must be pack_phase_taps(w in bf16)."""
-    k = w.shape[-1]
+def _check_geometry(k: int, stride: int, padding: int):
     if k - 2 * padding != stride:
         raise ValueError(f"conv_transpose1d: k={k}, padding={padding} does "
                          f"not give T_out = T_in * {stride}")
+    if not 0 <= padding <= stride:
+        raise ValueError(f"conv_transpose1d: padding={padding} outside "
+                         f"0..{stride} (k={k} > 3*stride) needs taps beyond "
+                         "input offsets -1..1")
+
+
+def pack_phase_taps(w, stride: int, padding: int):
+    """(C_in, C_out, k) -> (k, C_out, C_in): the taps of phase 0, then
+    phase 1, ..., each phase's in the order of phase_taps; block
+    [start(r) + i] = w[:, :, r + padding - d_i * stride].T. Every one of the
+    k kernel taps appears exactly once."""
+    _check_geometry(w.shape[-1], stride, padding)
+    j = [r + padding - d * stride
+         for r, ds in enumerate(phase_taps(stride, padding)) for d in ds]
+    return w[:, :, j].permute(2, 1, 0).contiguous()
+
+
+def conv_transpose1d(x, w, b, *, stride: int, padding: int, taps=None):
+    """x: (B, C_in, T) -> (B, C_out, T * stride) in x's dtype; w: (C_in,
+    C_out, k). On a CUDA tensor ``taps`` must be pack_phase_taps(w in
+    bf16) and x float32 or bfloat16."""
+    k = w.shape[-1]
+    _check_geometry(k, stride, padding)
     if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[1] or (
             b is not None and b.shape != (w.shape[1],)):
         raise ValueError(f"conv_transpose1d: input {tuple(x.shape)}, weight "
@@ -71,27 +88,29 @@ def conv_transpose1d(x, w, b, *, stride: int, padding: int, taps=None):
     if c_in % 32 or c_out % 32:
         raise ValueError(f"conv_transpose1d: C_in={c_in}, C_out={c_out} must "
                          "be multiples of 32")
-    if (taps is None or taps.shape != (stride, 3, c_out, c_in)
+    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
+        raise ValueError(f"conv_transpose1d: x is {x.dtype}, the kernel takes "
+                         "contiguous float32 or bfloat16")
+    if (taps is None or taps.shape != (k, c_out, c_in)
             or taps.dtype != torch.bfloat16 or taps.device != x.device
             or not taps.is_contiguous()):
         got = "missing" if taps is None else f"{tuple(taps.shape)} {taps.dtype} on {taps.device}"
         raise ValueError(f"conv_transpose1d: taps are {got}, the kernel takes "
-                         f"contiguous ({stride}, 3, {c_out}, {c_in}) bf16 on "
+                         f"contiguous ({k}, {c_out}, {c_in}) bf16 on "
                          f"{x.device} (pack_phase_taps, once at load)")
     if b is not None and (b.dtype != torch.float32 or b.device != x.device
                           or not b.is_contiguous()):
         raise ValueError(f"conv_transpose1d: bias must be contiguous float32 on {x.device}")
     fn = cuda_build.bind("conv_transpose", "conv_transpose_upsample", 4,
-                         (ctypes.c_int,) * 5)
-    x32 = x.float().contiguous()
+                         (ctypes.c_int,) * 7)
     bias = torch.zeros(c_out, device=x.device) if b is None else b
-    y = torch.empty(bsz, c_out, t * stride, device=x.device,
-                    dtype=torch.float32)
-    cuda_build.launch(fn, cuda_build.ptr(x32), cuda_build.ptr(taps),
+    y = torch.empty(bsz, c_out, t * stride, device=x.device, dtype=x.dtype)
+    cuda_build.launch(fn, cuda_build.ptr(x), cuda_build.ptr(taps),
                       cuda_build.ptr(bias), cuda_build.ptr(y),
-                      bsz, c_in, c_out, t, stride)
+                      bsz, c_in, c_out, t, stride, padding,
+                      int(x.dtype == torch.bfloat16))
     conv_transpose1d.launches += 1
-    return y.to(x.dtype)
+    return y
 
 
 conv_transpose1d.launches = 0

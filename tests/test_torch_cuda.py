@@ -79,9 +79,14 @@ def test_kernel_wrappers_reject_unpacked_weights(dev):
                  "b": torch.zeros(32, device=dev)}] for key in ("convs1", "convs2")}]
     with pytest.raises(ValueError, match="not packed"):
         rg.fused_resblock_group(x, p, (3,), ((1,),))
+    w4 = torch.zeros(32, 32, 4, device=dev)
     with pytest.raises(ValueError, match="pack_phase_taps"):
-        ct.conv_transpose1d(x, torch.zeros(32, 32, 4, device=dev),
-                            torch.zeros(32, device=dev), stride=2, padding=1)
+        ct.conv_transpose1d(x, w4, torch.zeros(32, device=dev), stride=2, padding=1)
+    # the earlier (u, 3, C_out, C_in) layout, zero taps included, is refused
+    with pytest.raises(ValueError, match="pack_phase_taps"):
+        ct.conv_transpose1d(x, w4, torch.zeros(32, device=dev), stride=2, padding=1,
+                            taps=torch.zeros(2, 3, 32, 32, device=dev,
+                                             dtype=torch.bfloat16))
     blk = {n: {"w": torch.zeros(32, 32, 3, 3, device=dev),
                "b": torch.zeros(32, device=dev)} for n in ("conv1", "conv2")}
     with pytest.raises(ValueError, match="pack_unet_weights"):
@@ -107,6 +112,46 @@ def test_conv_transpose_kernel(dev, u, c_in, c_out, t):
     assert n == 1 and got.shape == (2, c_out, t * u)
     # identical bf16-rounded operands: fp32 summation order only
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("u,k,c_in,c_out,t,dtype", [
+    (10, 16, 32, 64, 33, torch.float32),    # k < 2u: phases 3..6 one tap
+    (8, 12, 32, 32, 40, torch.float32),
+    (12, 24, 64, 32, 1, torch.float32),     # T_in off the tile
+    (2, 4, 64, 32, 129, torch.float32),
+    (4, 4, 32, 32, 17, torch.float32),      # padding 0: one tap a phase
+    (2, 6, 32, 32, 20, torch.float32),      # padding = u: three taps a phase
+    (12, 24, 512, 64, 100, torch.float32),  # stage-0 width, fp32 tile
+    (12, 24, 64, 32, 70, torch.bfloat16),
+    (12, 24, 512, 64, 100, torch.bfloat16),
+    (10, 20, 256, 128, 200, torch.bfloat16),
+    (10, 20, 32, 64, 129, torch.bfloat16),
+    (10, 16, 32, 32, 1, torch.bfloat16),
+    (8, 12, 32, 32, 33, torch.bfloat16),
+    (2, 4, 128, 64, 257, torch.bfloat16),
+])
+def test_conv_transpose_kernel_shapes(dev, u, k, c_in, c_out, t, dtype):
+    """Every tap count a phase can have, ragged tiles, rows of T_out off the
+    16-byte vector (scalar stores), and the bf16 route the decoder takes."""
+    rng = np.random.default_rng(u * 1000 + k * 10 + t)
+    pad = (k - u) // 2
+    x = _t(rng.standard_normal((2, c_in, t)) * 0.5, dev).to(dtype)
+    w = _t(rng.standard_normal((c_in, c_out, k)) / np.sqrt(c_in * k), dev)
+    b = _t(rng.standard_normal(c_out) * 0.02, dev)
+    taps = ct.pack_phase_taps(w.to(torch.bfloat16), u, pad)
+    got, n = _launched(ct.conv_transpose1d,
+                       lambda: ct.conv_transpose1d(x, w, b, stride=u, padding=pad,
+                                                   taps=taps))
+    ref = ct.conv_transpose1d_plain(x.float(), w, b, stride=u, padding=pad,
+                                    operand_dtype=torch.bfloat16)
+    assert n == 1 and got.shape == (2, c_out, t * u) and got.dtype == dtype
+    if dtype == torch.float32:
+        # identical bf16-rounded operands: fp32 summation order only
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    else:
+        # one bf16 rounding of the fp32 result, plus fp32 summation order
+        err = (got.float() - ref).abs()
+        assert bool((err <= 2.0 ** -8 * ref.abs() + 1e-4 * ref.abs().max()).all())
 
 
 def test_conv_transpose_rejects_channels_off_the_tile(dev):

@@ -32,7 +32,7 @@ from polgen_rvc_tpu_torch.convert.params import params_to_torch
 from polgen_rvc_tpu_torch.models.synthesizer import relative_attention
 from polgen_rvc_tpu_torch.ops.band_attention import band_attention_plain
 from polgen_rvc_tpu_torch.ops.conv_transpose import (
-    conv_transpose1d_plain, pack_phase_taps,
+    conv_transpose1d, conv_transpose1d_plain, pack_phase_taps, phase_taps,
 )
 from polgen_rvc_tpu_torch.ops.resblock_group import (
     fused_resblock_group, pack_resblock_weights, resblock_group_plain,
@@ -121,14 +121,80 @@ def test_conv_transpose_matches_pallas_and_xla(k, u, c_in, c_out):
     got = conv_transpose1d_plain(xt, wt, bt, stride=u, padding=pad)
     np.testing.assert_allclose(got.numpy(), np.asarray(xla), rtol=1e-4, atol=1e-5)
 
-    # the CUDA kernel's weight repack, emulated: phase r is a 3-tap conv
-    # with taps[r], its outputs interleaved at stride u (fp32, order only)
-    taps = pack_phase_taps(wt, u, pad)
-    assert taps.shape == (u, 3, c_out, c_in)
-    phases = [F.conv1d(xt, taps[r].permute(1, 2, 0), bt, padding=1)
-              for r in range(u)]
-    emu = torch.stack(phases, dim=-1).reshape(2, c_out, -1)
+    # the CUDA kernel's weight layout, emulated phase by phase (fp32, order
+    # only)
+    emu = _phase_by_phase(xt, pack_phase_taps(wt, u, pad), bt, u, pad)
     np.testing.assert_allclose(emu.numpy(), np.asarray(xla), rtol=1e-4, atol=1e-5)
+
+
+def _phase_by_phase(x, taps, b, u, pad):
+    """y from the phase-packed taps as the CUDA kernel decomposes it: phase
+    r sums, over its offsets d in phase_taps, the packed block times x
+    shifted by d (zero outside [0, T)); the phases interleave at stride u.
+    Phase r's blocks start where the kernel's closed form puts them."""
+    bsz, _, t = x.shape
+    xp = F.pad(x.float(), (1, 1))  # x[m + d] is xp[m + 1 + d]
+    y = torch.empty(bsz, taps.shape[1], t, u)
+    blk = 0
+    for r, ds in enumerate(phase_taps(u, pad)):
+        assert blk == r + min(r, pad) + max(0, r - (u - pad))
+        acc = b[None, :, None].expand(bsz, -1, t)
+        for d in ds:
+            acc = acc + torch.einsum("oc,bct->bot", taps[blk].float(),
+                                     xp[:, :, 1 + d:1 + d + t])
+            blk += 1
+        y[..., r] = acc
+    assert blk == taps.shape[0]
+    return y.reshape(bsz, -1, t * u)
+
+
+@pytest.mark.parametrize("k,u,c_in,c_out", [(24, 12, 64, 32), (16, 10, 32, 32),
+                                            (4, 2, 32, 16)])
+def test_phase_packed_taps_give_the_transposed_conv(k, u, c_in, c_out):
+    """The layout the CUDA kernel reads: only the taps of each phase's
+    offsets, no zero block, and phase by phase they give the transposed
+    conv: 48 kHz's first stage (u = 12, k = 24), 40 kHz's second (u = 10,
+    k = 16: phases 3..6 have one tap) and u = 2, k = 4, at narrow widths."""
+    rng = np.random.default_rng(100 + k)
+    pad = (k - u) // 2
+    x = (rng.standard_normal((2, c_in, 37)) * 0.5).astype(np.float32)
+    w = (rng.standard_normal((c_in, c_out, k)) / np.sqrt(c_in * k)).astype(np.float32)
+    b = (rng.standard_normal(c_out) * 0.02).astype(np.float32)
+    xt, wt, bt = map(torch.from_numpy, (x, w, b))
+
+    n_taps = [len(ds) for ds in phase_taps(u, pad)]
+    assert sum(n_taps) == k
+    if k == 16:
+        assert n_taps == [2, 2, 2, 1, 1, 1, 1, 2, 2, 2]
+    else:
+        assert n_taps == [2] * u
+    taps = pack_phase_taps(wt, u, pad)
+    assert taps.shape == (k, c_out, c_in)
+    assert bool((taps.abs().amax(dim=(1, 2)) > 0).all())  # no all-zero block
+
+    # fp32: summation order only
+    emu = _phase_by_phase(xt, taps, bt, u, pad)
+    ref = conv_transpose1d_plain(xt, wt, bt, stride=u, padding=pad)
+    np.testing.assert_allclose(emu.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+
+    # bf16-rounded operands both sides: fp32 summation order only (1e-4)
+    emu = _phase_by_phase(xt.to(torch.bfloat16), pack_phase_taps(
+        wt.to(torch.bfloat16), u, pad), bt, u, pad)
+    pallas = conv_transpose1d_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                     stride=u, padding=pad, time_tile=16,
+                                     interpret=True)
+    np.testing.assert_allclose(emu.numpy(), np.asarray(pallas), rtol=1e-4, atol=1e-5)
+
+
+def test_conv_transpose_refuses_padding_beyond_the_stride():
+    """padding > stride (k > 3 * stride) would need input offsets beyond
+    -1..1, which the packed layout and the kernel do not hold: both the
+    packing and the wrapper refuse it rather than drop taps."""
+    x, w = torch.zeros(1, 32, 5), torch.zeros(32, 32, 8)  # k 8, u 2, pad 3
+    with pytest.raises(ValueError, match="beyond"):
+        pack_phase_taps(w, 2, 3)
+    with pytest.raises(ValueError, match="beyond"):
+        conv_transpose1d(x, w, None, stride=2, padding=3)
 
 
 def _attn_params(rng, c, dk, w):

@@ -24,6 +24,7 @@ from polgen_rvc_tpu.pipeline.config import (
 )
 from polgen_rvc_tpu.pipeline.factory import build_synthetic_converter as jax_builder
 from polgen_rvc_tpu.utils.metrics import mel_distortion_db
+from polgen_rvc_tpu_torch.ops.conv_transpose import pack_phase_taps
 from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions, EngineConfig
 from polgen_rvc_tpu_torch.pipeline.engine import torch_noise
 from polgen_rvc_tpu_torch.pipeline.factory import build_synthetic_converter
@@ -96,9 +97,10 @@ def test_weights_are_packed_once_at_load(port_vc):
     weights, beside the fp32 originals the plain twins use."""
     dec, cfg = port_vc.synth_params["dec"], port_vc.synth_cfg
     for up, u in zip(dec["ups"], cfg.upsample_rates):
-        c_in, c_out = up["w"].shape[:2]
-        assert up["w_taps"].shape == (u, 3, c_out, c_in)
-        assert up["w_taps"].dtype == torch.bfloat16
+        c_in, c_out, k = up["w"].shape
+        assert torch.equal(up["w_taps"], pack_phase_taps(up["w"].to(torch.bfloat16),
+                                                         u, (k - u) // 2))
+        assert up["w_taps"].shape == (k, c_out, c_in)
     for rb in dec["resblocks"]:
         for conv in (*rb["convs1"], *rb["convs2"]):
             assert torch.equal(conv["w_taps"].float(),
