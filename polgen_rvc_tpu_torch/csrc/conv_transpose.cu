@@ -69,7 +69,7 @@ __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size
 
 // Bytes of shared memory: the staged input, then the output tile.
 template <typename T>
-__host__ __device__ size_t smem_bytes(int Cin, int BM, int BN, int u) {
+size_t smem_bytes(int Cin, int BM, int BN, int u) {
   return align16((size_t)(BN + 2) * (Cin + 8) * sizeof(__nv_bfloat16)) +
          (size_t)BM * (BN * u + 16 / sizeof(T)) * sizeof(T);
 }

@@ -101,6 +101,7 @@ def test_weights_are_packed_once_at_load(port_vc):
         assert torch.equal(up["w_taps"], pack_phase_taps(up["w"].to(torch.bfloat16),
                                                          u, (k - u) // 2))
         assert up["w_taps"].shape == (k, c_out, c_in)
+        assert up["w_taps"].dtype == torch.bfloat16
     for rb in dec["resblocks"]:
         for conv in (*rb["convs1"], *rb["convs2"]):
             assert torch.equal(conv["w_taps"].float(),
