@@ -15,14 +15,17 @@ printing one JSON line (any failure raises; exit code != 0):
                index_rate=0.5, protect=0.33, volume_envelope=0.25. One
                warm-up convert, then every kernel's launch count is set to
                0, one timed convert runs, and the counts are read: every
-               kernel of the path must have launched (all but viterbi).
+               kernel of the path must have launched (all but viterbi), the
+               resblock-group kernel exactly 36 times (4 stages x 9 conv
+               pairs, one chunk batch).
                The output must have the planned length and not be silent.
   profile:     one more convert under torch.profiler: the device's busy
                and idle share of the wall time, and kernels by device time.
   crepe:       the same, with full-width CREPE weights
                (with_crepe=True) and f0_method="mangio-crepe" at hop 128:
-               viterbi launches exactly once a convert, the synthesizer's
-               kernels launch, unet_chain (RMVPE's) does not; then its
+               viterbi launches exactly once a convert, the resblock group
+               36 times, the synthesizer's other kernels launch,
+               unet_chain (RMVPE's) does not; then its
                profile (crepe_profile), with each CREPE layer's conv and
                epilogue timed alone on one 2,048-frame slab.
   3. kernels:  every kernel's wrapper again on the very inputs its path
@@ -30,12 +33,15 @@ printing one JSON line (any failure raises; exit code != 0):
                path), held against its plain PyTorch twin on the same inputs
                in the kernel's working precision, with the tolerance
                printed (the Viterbi path exactly), and one launch of each
-               conv kernel against one plain conv at fp32 summation order
-               (conv-transpose: its fp32 route beside the bf16 one);
+               conv kernel against its plain twin at fp32 summation order
+               (the resblock group: one conv pair; conv-transpose and the
+               resblock group: the fp32 route beside the bf16 one);
                timed beside the plain twin, a single PyTorch call where one
                computes the same function, and the bound (bytes over
                3.35 TB/s or operations over the peak rate of the operands'
-               type). Per shape numbers included.
+               type). Per shape numbers included; for the resblock group
+               also its TFLOP/s, the HBM bytes its design moves, and the
+               cuDNN yardstick (its 18 convs as bf16 F.conv1d calls).
   4. reference: the same full-width models on a 2 s input, on the card
                (bf16) and on the CPU (float32 plain twins), same noise.
                The two rmvpe+ F0 passes agree on >= 90% of coarse bins, and
@@ -166,7 +172,7 @@ def profile_convert(vc, song, opts) -> dict:
     """One more convert under torch.profiler: the device's busy share of the
     wall time (sum of kernel times; one stream, so kernels do not overlap)
     and the kernels by device time. The port's kernels show under their
-    mangled names (conv1d_mma::kernel, convt_kernel, band_attention_kernel,
+    mangled names (pair_kernel, convt_kernel, band_attention_kernel,
     unet_conv3x3_kernel)."""
     import torch
     from torch.autograd import DeviceType
@@ -247,6 +253,25 @@ def abs_stats(ref) -> dict:
     return {"max_abs_ref": float(a.max()), "median_abs_ref": float(a.median())}
 
 
+def resblock_design_bytes(x, dilations) -> int:
+    """HBM bytes one resblock group moves in the pair kernel's design: per
+    launch its input read once (x's type for a resblock's first pair, else
+    the fp32 stream), its result written once (the fp32 stream or running
+    sum; x's type for the group's output), the fp32 running sum read where
+    it is added. The residual's second read of the input is counted as an
+    L2 hit, the weights apart."""
+    n, xs = x.numel(), x.element_size()
+    total = 0
+    for r, dils in enumerate(dilations):
+        for i in range(len(dils)):
+            total += n * (xs if i == 0 else 4)
+            if i < len(dils) - 1:
+                total += 4 * n
+            else:
+                total += (xs if r == len(dilations) - 1 else 4) * n + (4 * n if r else 0)
+    return total
+
+
 def structured_log_obs(t: int, n: int, seed: int = 0):
     """(t, 360) Viterbi log observations: a random-walk peak over low noise,
     masked edges, a block of all-tie frames, garbage rows past n."""
@@ -270,8 +295,9 @@ def check_kernels(calls: dict) -> dict:
 
     Each kernel is held to its plain twin over its whole call (a resblock
     group of 18 convs, a U-Net level of 8) in the kernel's working
-    precision, and one launch of it (one conv, the same bf16-rounded
-    operands both sides) to a single plain conv at fp32 summation order.
+    precision, and one launch of it (one conv, or one conv pair of the
+    resblock group; the same bf16-rounded operands both sides) to its plain
+    twin at fp32 summation order.
     The Viterbi path must equal the twin's exactly."""
     import torch
     import torch.nn.functional as F
@@ -321,28 +347,68 @@ def check_kernels(calls: dict) -> dict:
         if not err <= tol:
             raise AssertionError(f"{name} {shape}: max_abs_err {err} > {tol}")
 
+    cudnn_convs_ms = 0.0
     for e in calls["resblock_group"].values():
         x, params, ks, ds = e["args"]
         b, c, t = x.shape
-        x32 = x.float().contiguous()
-        got = rg.fused_resblock_group(x32, params, ks, ds)
-        ref = rg.resblock_group_plain(x32, params, ks, ds, operand_dtype=bf16)
-        err = float((got - ref).abs().max())
         # bf16 operands on both sides; an intermediate near a bf16 rounding
-        # boundary may round one ulp apart before the next of 18 convs
-        tol = 1e-2 * float(ref.abs().max())
-        # one launch: the widest-halo conv (k = 11, d = 5) with its residual
-        conv, k, d = params[-1]["convs1"][-1], ks[-1], ds[-1][-1]
-        one = single(rg.resblock_conv(x32, conv, k, d, res=x32),
-                     F.conv1d(rnd(F.leaky_relu(x32, rg.LRELU_SLOPE)), rnd(conv["w"]),
-                              conv["b"], padding=d * (k - 1) // 2, dilation=d) + x32)
+        # boundary may round one ulp apart before the next of 18 convs. The
+        # fp32 route first, then the route the decoder takes (x's dtype,
+        # bf16 in a bf16 engine; its one rounding of the output is inside)
+        x32 = x.float().contiguous()
+        ref = rg.resblock_group_plain(x32, params, ks, ds, operand_dtype=bf16)
+        got = rg.fused_resblock_group(x32, params, ks, ds)
+        fp32_err, fp32_tol = float((got - ref).abs().max()), 1e-2 * float(ref.abs().max())
+        if not fp32_err <= fp32_tol:
+            raise AssertionError(f"resblock_group fp32 route: {fp32_err} > {fp32_tol}")
+        ref = rg.resblock_group_plain(x, params, ks, ds, operand_dtype=bf16).float()
+        got = rg.fused_resblock_group(x, params, ks, ds).float()
+        err, tol = float((got - ref).abs().max()), 1e-2 * float(ref.abs().max())
+        # one launch: the widest-halo pair (k = 11, d = 5) at fp32 x, against
+        # its twin on the same bf16 operands: fp32 order, plus one bf16 ulp
+        # of h (<= 2^-7 |h|) where the two round h apart, through conv2
+        c1, c2, k, d = params[-1]["convs1"][-1], params[-1]["convs2"][-1], ks[-1], ds[-1][-1]
+        pair_ref = rg.resblock_pair_plain(x32, c1, c2, k, d, operand_dtype=bf16)
+        pair_got = rg.resblock_pair(x32, c1, c2, k, d)
+        h = F.leaky_relu(F.conv1d(rnd(F.leaky_relu(x32, rg.LRELU_SLOPE)), rnd(c1["w"]),
+                                  c1["b"], padding=d * (k - 1) // 2, dilation=d),
+                         rg.LRELU_SLOPE)
+        limit = (1e-4 * float(pair_ref.abs().max())
+                 + F.conv1d(2.0 ** -7 * rnd(h).abs(), rnd(c2["w"]).abs(),
+                            padding=(k - 1) // 2))
+        pair_err = (pair_got - pair_ref).abs()
+        if not bool((pair_err <= limit).all()):
+            raise AssertionError("resblock_group one pair: error above fp32 order "
+                                 "+ one bf16 ulp of h through conv2")
+        del h, limit
+        one = {"fp32_route": {"max_abs_err": fp32_err, "tolerance": fp32_tol},
+               "one_pair_k11_d5": {"max_abs_err": float(pair_err.max()),
+                                   **abs_stats(pair_ref)}}
+        del pair_ref, pair_got, pair_err
+        convs = [(p[key][i]["w"].to(bf16), p[key][i]["b"].to(bf16), kk,
+                  dd if key == "convs1" else 1)
+                 for p, kk, dils in zip(params, ks, ds) for i, dd in enumerate(dils)
+                 for key in ("convs1", "convs2")]
+        xb = x.to(bf16)
+
+        def cudnn_convs():
+            for w, bb, kk, dd in convs:
+                F.conv1d(xb, w, bb, padding=dd * (kk - 1) // 2, dilation=dd)
+
+        cudnn_ms = cuda_ms(cudnn_convs)
+        cudnn_convs_ms += cudnn_ms * e["count"]
         flops = sum(2.0 * b * c * c * k * t * 2 * len(d) for k, d in zip(ks, ds))
+        ms = cuda_ms(lambda: rg.fused_resblock_group(x, params, ks, ds))
+        moved = resblock_design_bytes(x, ds) + nbytes(*packed_tensors(params))
+        one.update({"cudnn_18_convs_ms": cudnn_ms, "tflop_per_s": flops / ms / 1e9,
+                    "design_hbm_bytes": moved, "design_tb_per_s": moved / ms / 1e9})
         byts = 2 * nbytes(x) + nbytes(*packed_tensors(params))
-        add("resblock_group", err, tol, ref,
-            cuda_ms(lambda: rg.fused_resblock_group(x, params, ks, ds)),
+        add("resblock_group", err, tol, ref, ms,
             cuda_ms(lambda: rg.resblock_group_plain(x, params, ks, ds,
                                                     operand_dtype=bf16)),
-            None, flops, byts, bf16, e["count"], [b, c, t], one)
+            None, flops, byts, bf16, e["count"], [b, c, t, str(x.dtype)], one)
+    if "resblock_group" in out:
+        out["resblock_group"]["cudnn_convs_ms"] = cudnn_convs_ms
 
     for e in calls["conv_transpose"].values():
         x, w, bias = e["args"][:3]
@@ -519,6 +585,13 @@ def check_output(run: dict, expected: int, path: str, launched, idle):
         raise AssertionError(f"{path}: kernels of another path launched: {extra}")
 
 
+def check_resblock_launches(run: dict, path: str):
+    """One launch per conv pair: 4 decoder stages x 9 pairs, one chunk batch."""
+    if run["launches"]["resblock_group"] != 36:
+        raise AssertionError(f"{path}: resblock_group launched "
+                             f"{run['launches']['resblock_group']} times, not 36")
+
+
 def main() -> int:
     import torch
 
@@ -592,6 +665,7 @@ def main() -> int:
     check_output(run, expected, "main path",
                  launched=(*synth_kernels, "unet_chain"), idle=("viterbi",))
     launches = dict(run["launches"])
+    check_resblock_launches(run, "main path")
     del vc, run
 
     # ---- mangio-crepe path -------------------------------------------------
@@ -622,6 +696,7 @@ def main() -> int:
     if crun["launches"]["viterbi"] != 1:
         raise AssertionError(f"viterbi launched {crun['launches']['viterbi']} "
                              "times in one mangio-crepe convert, not once")
+    check_resblock_launches(crun, "mangio-crepe path")
     launches["viterbi"] = crun["launches"]["viterbi"]
     del cvc, crun
 
@@ -706,7 +781,14 @@ def main() -> int:
          "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
          "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
          "bound_by": kernels[name]["bound_by"],
-         "library_ms": kernels[name]["library_ms"]}
+         "library_ms": kernels[name]["library_ms"],
+         **({"cudnn_convs_ms": kernels[name]["cudnn_convs_ms"],
+             "cudnn_convs_note": "yardstick, not library_ms: the group's 18 convs "
+                                 "as bf16 F.conv1d calls at the same shapes, summed "
+                                 "over the stages; leaves out the lrelu, residual "
+                                 "and mean passes; no one call computes the group "
+                                 "and the port never calls it"}
+            if name == "resblock_group" else {})}
         for name in wrappers
     ]}
     emit(line)

@@ -1,30 +1,328 @@
-// One convolution of a HiFi-GAN ResBlock1 group, fused with its
-// activation, edge zeroing, bias, residual and mean accumulation:
+// One conv pair of a HiFi-GAN ResBlock1, fused with its activations, edge
+// zeroing, biases, residual and the group's running mean:
 //
-//   v[b,o,t] = bias[o] + sum_{c,j} W[j,o,c] * lrelu(x[b,c,t+(j-ctr)*dil])
-//              (x read as zero outside [0, T)), then
-//   mode 0: y = v (+ res)            mode 1: y = (v (+ res)) * scale
-//   mode 2: y += (v (+ res)) * scale
+//   h = rnd(lrelu(conv_{k,d}(rnd(lrelu(src))) + b1))   h = 0 outside [0, T)
+//   v = conv_{k,1}(h) + b2 + src
+//   mode 0: y = v        mode 1: y = acc + v (acc may be y)
+//   mode 2: out = (acc + v) / n_res, or v / n_res without acc, in out's type
 //
-// Replaces polgen_rvc_tpu/ops/pallas_resblock.py:fused_resblock_group (and
-// its time-folded twin fused_resblock_group_folded): the wrapper in
-// ops/resblock_group.py launches this 18 times per decoder stage.
+// rnd rounds fp32 to bf16; src (float32 or bf16) is read as zero outside
+// [0, T). Replaces polgen_rvc_tpu/ops/pallas_resblock.py:
+// fused_resblock_group (and its time-folded twin): the wrapper in
+// ops/resblock_group.py launches this once per conv pair, 9 times per
+// decoder stage, with the residual stream and running sum in fp32 between
+// launches.
 //
-// Bound: operations. One group is 252*C^2*T FLOP (C = 256..32, T up to
-// 1.9M samples per row); bytes are ~18 fp32 reads and writes of (C, T).
-// Design: the tensor-core implicit GEMM of conv1d_mma.cuh (M = C_out,
-// N = time, K = C_in * k; mma.sync bf16 operands, fp32 accumulator; the
-// im2col is never built). The TPU kernel's time fold, a matrix-unit trick,
-// is not reproduced: 64- and 32-row tiles serve every width.
-// Later work: wgmma/TMA, and the whole group in one pass.
-#include "conv1d_mma.cuh"
+// Bound: operations at C >= 64 (a pair is 4*k*C^2 FLOP per sample against
+// ~10-20 bytes), close to the bytes at C = 32. Design: a block owns one
+// batch row and M consecutive rows of h, all C channels (conv2 contracts
+// over all of them), so the intermediate never leaves shared memory:
+//   - rnd(lrelu(src)) over the tile plus both halos is staged once,
+//     time-major with channels contiguous (row stride C + 8: ldmatrix rows
+//     fall on distinct banks); every tap j reads it shifted by j*d rows;
+//   - conv1 runs M = time x N = output channels (chunks of OC) x K = C_in *
+//     k as an implicit GEMM on mma.sync m16n8k16 (bf16 operands, fp32
+//     accumulator), A and B fragments through ldmatrix.x4; each chunk of h
+//     is biased, activated, rounded, zeroed outside [0, T) and parked in
+//     shared memory;
+//   - conv2 runs the same loop over h, whose first M - (k - 1) rows are the
+//     block's outputs (the halo recompute costs (k - 1) / M of the work);
+//     its epilogue adds bias and residual and writes the mode's result;
+//   - weights stream through a two-slot ring of (k, OC, 32 input channels)
+//     chunks (64-byte rows, 16-byte units XOR-swizzled against bank
+//     conflicts): cp.async brings chunk i + 1 while chunk i's products run.
+// Tiles: M = 256 at C = 32, 128 at C <= 128, 64 above (shared memory);
+// OC = 64 where it divides C, else 32; eight warps. Not here: wgmma, TMA,
+// clusters, persistent blocks, and the whole group in one pass.
+#include "common.cuh"
 
-// x, res, y: (B, C, T) fp32; w: (k, C, C) bf16 [tap][out][in]; bias (C,).
-// res may be null and may alias y. C must be a multiple of 32.
-POLGEN_API int resblock_conv(const void* x, const void* w, const void* bias,
-                             const void* res, void* y, int B, int C, int T,
-                             int k, int dil, float slope, int mode,
-                             float scale, void* stream) {
-  return (int)conv1d_mma::launch(x, w, bias, res, y, B, C, C, T, 1, k, dil,
-                                 slope, mode, scale, stream);
+namespace {
+
+constexpr int THREADS = 256;  // eight warps
+constexpr int KC = 32;        // input channels per weight chunk
+constexpr int SMEM_MAX = 232448;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float lrelu(float v, float slope) {
+  return v > 0.f ? v : v * slope;
+}
+
+struct PairArgs {
+  const void* src;                // (B, C, T) float32 or bf16
+  const __nv_bfloat16* w[2];      // (k, C_out, C_in) bf16, conv1 and conv2
+  const float* bias[2];           // (C,) float32
+  const float* acc;               // (B, C, T) float32 or null
+  void* y;                        // (B, C, T) float32, or out's type in mode 2
+  int C, T, k, dil;
+  float slope;
+  int mode;
+  float n_res;
+  int src_bf16, out_bf16;
+};
+
+// chunk (conv, oc, cc) of the ring: taps x OC output x KC input channels,
+// row R = j * OC + o, its four 16-byte units at u ^ ((R >> 1) & 3)
+template <int OC>
+__device__ __forceinline__ void load_chunk(const PairArgs& a, int conv, int oc,
+                                           int cc, __nv_bfloat16* buf) {
+  const __nv_bfloat16* w = a.w[conv];
+  const int C = a.C;
+  const int units = a.k * OC * 4;
+  for (int idx = threadIdx.x; idx < units; idx += THREADS) {
+    const int R = idx >> 2, u = idx & 3;
+    const int j = R / OC, o = R - j * OC;
+    cp_async16(smem_addr(buf + R * KC + ((u ^ ((R >> 1) & 3)) << 3)),
+               w + ((size_t)j * C + oc * OC + o) * C + cc * KC + u * 8);
+  }
+}
+
+template <int M, int OC, int MT, int NT>
+__global__ void __launch_bounds__(THREADS, 1) pair_kernel(const PairArgs a) {
+  constexpr int WARPS_N = OC / (8 * NT);
+  constexpr int WARPS_M = (THREADS / 32) / WARPS_N;
+  static_assert(WARPS_M * 16 * MT == M, "warp tiles must cover M rows");
+  static_assert(NT % 2 == 0, "B fragments come in pairs of n-tiles");
+
+  const int C = a.C, T = a.T, k = a.k, dil = a.dil;
+  const int S = C + 8;                 // activation row stride (bf16)
+  const int ctr = (k - 1) / 2;
+  const int XR = M + (k - 1) * dil;    // staged src rows
+  const int HR = M + k - 1;            // h rows (the last k - 1 stay zero)
+  const int bn = M - (k - 1);          // outputs per block
+  const int t0 = blockIdx.x * bn;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = warp / WARPS_N, wn = warp - wm * WARPS_N;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* hs = xs + XR * S;
+  __nv_bfloat16* wring = hs + HR * S;
+  const int chunk_elems = k * OC * KC;
+
+  const int NO = C / OC, NC = C / KC, per_conv = NO * NC;
+  const int n_chunks = 2 * per_conv;
+  load_chunk<OC>(a, 0, 0, 0, wring);
+  cp_async_commit();
+
+  // h rows past M are read only by rows that are never stored
+  for (int idx = tid; idx < (HR - M) * (S / 2); idx += THREADS)
+    reinterpret_cast<uint32_t*>(hs + M * S)[idx] = 0u;
+
+  // rnd(lrelu(src)) over [t0 - ctr*(1+dil), +XR): consecutive threads read
+  // consecutive t of two channels and store one 32-bit word
+  const size_t plane = (size_t)C * T;
+  const int xlo = t0 - ctr * (1 + dil);
+  for (int idx = tid; idx < (C / 2) * XR; idx += THREADS) {
+    const int cp = idx / XR, r = idx - cp * XR;
+    const int t = xlo + r;
+    float v0 = 0.f, v1 = 0.f;
+    if (t >= 0 && t < T) {
+      const size_t i = b * plane + (size_t)(2 * cp) * T + t;
+      if (a.src_bf16) {
+        const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(a.src);
+        v0 = __bfloat162float(s[i]);
+        v1 = __bfloat162float(s[i + T]);
+      } else {
+        const float* s = static_cast<const float*>(a.src);
+        v0 = s[i];
+        v1 = s[i + T];
+      }
+      v0 = lrelu(v0, a.slope);
+      v1 = lrelu(v1, a.slope);
+    }
+    *reinterpret_cast<uint32_t*>(xs + r * S + 2 * cp) =
+        pack_bf16x2(__float2bfloat16(v0), __float2bfloat16(v1));
+  }
+
+  float acc[MT][NT][4];
+  for (int i = 0; i < n_chunks; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk i (and the staged rows, h) visible; slot free
+    if (i + 1 < n_chunks) {
+      const int n = i + 1, cv = n / per_conv, rm = n - cv * per_conv;
+      load_chunk<OC>(a, cv, rm / NC, rm % NC, wring + (n & 1) * chunk_elems);
+    }
+    cp_async_commit();
+
+    const int conv = i / per_conv, rem = i - conv * per_conv;
+    const int oc = rem / NC, cc = rem - oc * NC;
+    if (cc == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    }
+    const __nv_bfloat16* act = conv == 0 ? xs : hs;
+    const int shift = conv == 0 ? dil : 1;
+    const __nv_bfloat16* wb = wring + (i & 1) * chunk_elems;
+    const uint32_t a_base = smem_addr(
+        act + (wm * MT * 16 + (lane & 15)) * S + cc * KC + (lane >> 4) * 8);
+    const int b_row = wn * NT * 8 + (lane & 7) + ((lane >> 4) << 3);
+    const int b_unit = (lane >> 3) & 1;
+    for (int j = 0; j < k; ++j) {
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldmatrix_x4(af[mt], a_base + ((mt * 16 + j * shift) * S + kk * 16) * 2);
+        uint32_t bfr[NT][2];
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          const int R = j * OC + b_row + np * 16;
+          const int u = (kk * 2 + b_unit) ^ ((R >> 1) & 3);
+          uint32_t r4[4];
+          ldmatrix_x4(r4, smem_addr(wb + R * KC + u * 8));
+          bfr[2 * np][0] = r4[0];
+          bfr[2 * np][1] = r4[1];
+          bfr[2 * np + 1][0] = r4[2];
+          bfr[2 * np + 1][1] = r4[3];
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(acc[mt][nt], af[mt], bfr[nt]);
+      }
+    }
+    if (cc != NC - 1) continue;
+
+    const float* bias = a.bias[conv];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = wm * MT * 16 + mt * 16 + g + half * 8;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int o = oc * OC + wn * NT * 8 + nt * 8 + 2 * q;
+          float v0 = acc[mt][nt][half * 2] + bias[o];
+          float v1 = acc[mt][nt][half * 2 + 1] + bias[o + 1];
+          if (conv == 0) {
+            const int t = t0 - ctr + p;
+            const bool in = t >= 0 && t < T;
+            v0 = in ? lrelu(v0, a.slope) : 0.f;
+            v1 = in ? lrelu(v1, a.slope) : 0.f;
+            *reinterpret_cast<uint32_t*>(hs + p * S + o) =
+                pack_bf16x2(__float2bfloat16(v0), __float2bfloat16(v1));
+            continue;
+          }
+          const int t = t0 + p;
+          if (p >= bn || t >= T) continue;
+          const size_t i0 = b * plane + (size_t)o * T + t, i1 = i0 + T;
+          if (a.src_bf16) {
+            const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(a.src);
+            v0 += __bfloat162float(s[i0]);
+            v1 += __bfloat162float(s[i1]);
+          } else {
+            const float* s = static_cast<const float*>(a.src);
+            v0 += s[i0];
+            v1 += s[i1];
+          }
+          if (a.acc) {
+            v0 = a.acc[i0] + v0;
+            v1 = a.acc[i1] + v1;
+          }
+          if (a.mode < 2) {
+            float* y = static_cast<float*>(a.y);
+            y[i0] = v0;
+            y[i1] = v1;
+          } else if (a.out_bf16) {
+            __nv_bfloat16* y = static_cast<__nv_bfloat16*>(a.y);
+            y[i0] = __float2bfloat16(v0 / a.n_res);
+            y[i1] = __float2bfloat16(v1 / a.n_res);
+          } else {
+            float* y = static_cast<float*>(a.y);
+            y[i0] = v0 / a.n_res;
+            y[i1] = v1 / a.n_res;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int M, int OC, int MT, int NT>
+cudaError_t launch_tile(const PairArgs& a, int B, cudaStream_t stream) {
+  const int S = a.C + 8;
+  const size_t smem =
+      ((size_t)(M + (a.k - 1) * a.dil) + (M + a.k - 1)) * S * 2 +
+      2 * (size_t)a.k * OC * KC * 2;
+  if (a.k > M || smem > SMEM_MAX) return cudaErrorInvalidValue;
+  auto kern = pair_kernel<M, OC, MT, NT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int bn = M - (a.k - 1);
+  dim3 grid((a.T + bn - 1) / bn, B);
+  kern<<<grid, THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// src, acc, y: (B, C, T); w1, w2: (k, C, C) bf16 [tap][out][in]; b1, b2 (C,)
+// float32. src is bf16 when src_bf16, else float32; acc float32 or null;
+// y float32 in modes 0 and 1, bf16 (out_bf16) or float32 in mode 2. y may
+// be acc, never src. C a multiple of 32 up to 256, k odd.
+POLGEN_API int resblock_pair(const void* src, const void* w1, const void* b1,
+                             const void* w2, const void* b2, const void* acc,
+                             void* y, int B, int C, int T, int k, int dil,
+                             float slope, int mode, float n_res, int src_bf16,
+                             int out_bf16, void* stream) {
+  if (C % 32 != 0 || C < 32 || C > 256 || B < 1 || B > 65535 || T < 1 ||
+      k < 1 || k % 2 == 0 || dil < 1 || mode < 0 || mode > 2 ||
+      (mode == 1 && acc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  PairArgs a;
+  a.src = src;
+  a.w[0] = static_cast<const __nv_bfloat16*>(w1);
+  a.w[1] = static_cast<const __nv_bfloat16*>(w2);
+  a.bias[0] = static_cast<const float*>(b1);
+  a.bias[1] = static_cast<const float*>(b2);
+  a.acc = static_cast<const float*>(acc);
+  a.y = y;
+  a.C = C;
+  a.T = T;
+  a.k = k;
+  a.dil = dil;
+  a.slope = slope;
+  a.mode = mode;
+  a.n_res = n_res;
+  a.src_bf16 = src_bf16;
+  a.out_bf16 = out_bf16;
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (C == 32) err = launch_tile<256, 32, 2, 4>(a, B, s);
+  else if (C <= 128) err = C % 64 ? launch_tile<128, 32, 1, 4>(a, B, s)
+                                  : launch_tile<128, 64, 2, 4>(a, B, s);
+  else err = C % 64 ? launch_tile<64, 32, 1, 2>(a, B, s)
+                    : launch_tile<64, 64, 2, 2>(a, B, s);
+  return (int)err;
 }

@@ -155,8 +155,10 @@ class VoiceConverter:
             return crepe_f0(self.crepe_params, buf, padded_len, opts,
                             window=self.engine.window,
                             compute_dtype=self.compute_dtype)
+        if opts.f0_method == "fcpe":
+            raise NotImplementedError("f0 method 'fcpe' is not ported yet")
         if opts.f0_method not in ("rmvpe+", "rmvpe"):
-            raise NotImplementedError(f"f0 method {opts.f0_method!r} is not ported yet")
+            raise ValueError(f"unknown f0 method: {opts.f0_method}")
         mel, n = pad_frames_to_32(rmvpe_mel(buf[None].float()))
         sal = rmvpe_salience(self.rmvpe_params, mel)[:, :n]
         f0_raw = salience_to_f0(sal, 0.03)

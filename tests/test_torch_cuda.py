@@ -15,6 +15,7 @@ lengths. Inputs are made with numpy from a seed; each tolerance says why.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from polgen_rvc_tpu_torch.ops import band_attention as ba
 from polgen_rvc_tpu_torch.ops import conv_transpose as ct
@@ -43,32 +44,75 @@ def _launched(fn, call):
     return out, fn.launches - before
 
 
-@pytest.mark.parametrize("c,t", [(32, 300), (64, 1000), (96, 129)])
-def test_resblock_group_kernel(dev, c, t):
-    rng = np.random.default_rng(c + t)
+def _resblock_params(rng, c, dev):
     ks, ds = (3, 7, 11), ((1, 3, 5),) * 3
     params = [{key: [{"w": _t(rng.standard_normal((c, c, k)) / np.sqrt(c * k), dev),
                       "b": _t(rng.standard_normal(c) * 0.02, dev)} for _ in d]
                for key in ("convs1", "convs2")} for k, d in zip(ks, ds)]
-    x = _t(rng.standard_normal((2, c, t)) * 0.3, dev)
+    return params, ks, ds
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [5, 37, 129, 300, 1000])
+@pytest.mark.parametrize("c", [32, 64, 96, 128, 256])
+def test_resblock_group_kernel(dev, c, t, dtype):
+    """Every tile shape (C = 32, 64/128, 96, 256), T ragged against every
+    tile and shorter than the deepest halo, x in bf16 and in fp32."""
+    rng = np.random.default_rng(c + t)
+    params, ks, ds = _resblock_params(rng, c, dev)
+    x = _t(rng.standard_normal((2, c, t)) * 0.3, dev).to(dtype)
     packed = rg.pack_resblock_weights(params)
     got, n = _launched(rg.fused_resblock_group,
                        lambda: rg.fused_resblock_group(x, packed, ks, ds))
     ref = rg.resblock_group_plain(x, params, ks, ds, operand_dtype=torch.bfloat16)
-    assert n == 18
+    assert n == 9 and got.dtype == dtype and got.shape == x.shape
     # bf16 operands both sides; an intermediate near a bf16 rounding boundary
     # may round one ulp apart before the next of 18 convs
-    assert float((got - ref).abs().max()) <= 1e-2 * float(ref.abs().max())
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= 1e-2 * float(ref.float().abs().max())
+
+
+@pytest.mark.parametrize("mode", ["stream", "sum", "mean"])
+@pytest.mark.parametrize("c,t", [(32, 300), (64, 129), (96, 37), (128, 5), (256, 200)])
+def test_resblock_pair_kernel(dev, c, t, mode):
+    """One launch (k = 11, d = 5) at fp32 x against resblock_pair_plain on
+    the same bf16-rounded operands. Tolerance: fp32 summation order (1e-4 of
+    max |ref|) plus one bf16 ulp of h (<= 2^-7 |h|) wherever the two round
+    h on either side of a boundary, carried through conv2:
+    conv_{k,1}(2^-7 |h|, |W2|)."""
+    rng = np.random.default_rng(7 * c + t)
+    params, ks, ds = _resblock_params(rng, c, dev)
+    k, d = ks[-1], ds[-1][-1]
+    c1, c2 = params[-1]["convs1"][-1], params[-1]["convs2"][-1]
+    p1, p2 = (rg.pack_resblock_weights([{"convs1": [c1], "convs2": [c2]}])[0][key][0]
+              for key in ("convs1", "convs2"))
+    x = _t(rng.standard_normal((2, c, t)) * 0.3, dev)
+    acc = _t(rng.standard_normal((2, c, t)), dev)
+    kw = {"stream": {}, "sum": {"acc": acc},
+          "mean": {"acc": acc, "last": True, "n_res": 3}}[mode]
+    got, n = _launched(rg.fused_resblock_group,
+                       lambda: rg.resblock_pair(x, p1, p2, k, d, **kw))
+    bf16 = torch.bfloat16
+    ref = rg.resblock_pair_plain(x, c1, c2, k, d, operand_dtype=bf16, **kw)
+    h = F.leaky_relu(F.conv1d(F.leaky_relu(x, 0.1).to(bf16).float(),
+                              c1["w"].to(bf16).float(), c1["b"],
+                              padding=d * (k - 1) // 2, dilation=d), 0.1)
+    ulp_h = F.conv1d(2.0 ** -7 * h.to(bf16).float().abs(), c2["w"].to(bf16).float().abs(),
+                     padding=(k - 1) // 2) / (kw.get("n_res", 1))
+    assert n == 1 and got.dtype == torch.float32
+    limit = 1e-4 * float(ref.abs().max()) + ulp_h
+    assert bool(((got - ref).abs() <= limit).all()), float((got - ref).abs().max())
 
 
 def test_resblock_group_rejects_channels_off_the_tile(dev):
-    x = torch.zeros(1, 48, 64, device=dev)
-    p = [{"convs1": [{"w": torch.zeros(48, 48, 3, device=dev),
-                      "b": torch.zeros(48, device=dev)}],
-          "convs2": [{"w": torch.zeros(48, 48, 3, device=dev),
-                      "b": torch.zeros(48, device=dev)}]}]
-    with pytest.raises(ValueError, match="multiple of 32"):
-        rg.fused_resblock_group(x, rg.pack_resblock_weights(p), (3,), ((1,),))
+    for c in (48, 288):
+        x = torch.zeros(1, c, 64, device=dev)
+        p = [{"convs1": [{"w": torch.zeros(c, c, 3, device=dev),
+                          "b": torch.zeros(c, device=dev)}],
+              "convs2": [{"w": torch.zeros(c, c, 3, device=dev),
+                          "b": torch.zeros(c, device=dev)}]}]
+        with pytest.raises(ValueError, match="multiple of 32"):
+            rg.fused_resblock_group(x, rg.pack_resblock_weights(p), (3,), ((1,),))
 
 
 def test_kernel_wrappers_reject_unpacked_weights(dev):

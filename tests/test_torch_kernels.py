@@ -36,6 +36,7 @@ from polgen_rvc_tpu_torch.ops.conv_transpose import (
 )
 from polgen_rvc_tpu_torch.ops.resblock_group import (
     fused_resblock_group, pack_resblock_weights, resblock_group_plain,
+    resblock_pair_plain,
 )
 from polgen_rvc_tpu_torch.ops.unet_chain import (
     convblock_chain, convblock_chain_plain, pack_taps_3x3, pack_unet_weights,
@@ -96,6 +97,80 @@ def test_resblock_group_matches_pallas_and_xla(c, t, fold):
     xla = np.asarray(xla) / len(KS)
     cpu = fused_resblock_group(xt, tp, KS, DS)  # the wrapper, on a CPU tensor
     np.testing.assert_allclose(cpu.numpy(), xla, rtol=1e-4, atol=1e-4)
+
+
+def _group_from_pairs(x, params, ks, ds, operand_dtype):
+    """The group as the CUDA wrapper launches it: one resblock_pair_plain
+    per conv pair, the fp32 residual stream and running sum between them."""
+    acc, n_res = None, len(ks)
+    for r, (p, k, dils) in enumerate(zip(params, ks, ds)):
+        src = x
+        for i, d in enumerate(dils):
+            last = i == len(dils) - 1
+            v = resblock_pair_plain(src, p["convs1"][i], p["convs2"][i], k, d,
+                                    acc=acc if last else None,
+                                    last=last and r == n_res - 1, n_res=n_res,
+                                    out_dtype=x.dtype, operand_dtype=operand_dtype)
+            if last:
+                acc = v
+            else:
+                src = v
+    return acc
+
+
+@pytest.mark.parametrize("operand_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("c,t", [(32, 5), (32, 37), (32, 300), (64, 5), (64, 37),
+                                 (64, 129)])
+def test_resblock_pair_twin_composes_to_the_group(c, t, operand_dtype):
+    """Nine pair twins, in the wrapper's order, give resblock_group_plain bit
+    for bit. T = 5 and 37 are shorter than the deepest halo (k = 11, d = 5:
+    25 + 5 samples a side), where zeroing h outside [0, T) decides the
+    result."""
+    rng = np.random.default_rng(c * 7 + t)
+    params = params_to_torch(_resblock_params(rng, c))
+    x = torch.from_numpy((rng.standard_normal((2, c, t)) * 0.3).astype(np.float32))
+    for xin in (x, x.to(torch.bfloat16)):
+        ref = resblock_group_plain(xin, params, KS, DS, operand_dtype=operand_dtype)
+        got = _group_from_pairs(xin, params, KS, DS, operand_dtype)
+        assert got.dtype == xin.dtype and torch.equal(got, ref)
+
+
+def test_resblock_pair_twin_epilogues():
+    """One pair's three epilogues: the stream (v), the running sum (acc + v)
+    and the group's mean in the output dtype; h is zero outside [0, T)."""
+    rng = np.random.default_rng(3)
+    c, t, k, d = 32, 9, 11, 5
+    p = params_to_torch(_resblock_params(rng, c))[2]
+    c1, c2 = p["convs1"][2], p["convs2"][2]
+    x = torch.from_numpy((rng.standard_normal((1, c, t)) * 0.3).astype(np.float32))
+    acc = torch.from_numpy(rng.standard_normal((1, c, t)).astype(np.float32))
+    h = F.leaky_relu(F.conv1d(F.leaky_relu(x, 0.1), c1["w"], c1["b"],
+                              padding=d * (k - 1) // 2, dilation=d), 0.1)
+    v = x + F.conv1d(h, c2["w"], c2["b"], padding=(k - 1) // 2)
+    assert torch.equal(resblock_pair_plain(x, c1, c2, k, d), v)
+    assert torch.equal(resblock_pair_plain(x, c1, c2, k, d, acc=acc), acc + v)
+    out = resblock_pair_plain(x, c1, c2, k, d, acc=acc, last=True, n_res=3,
+                              out_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, ((acc + v) / 3).to(torch.bfloat16))
+
+
+def test_resblock_group_bf16_input_matches_pallas():
+    """x in bf16, as the decoder hands it over on the card: JAX's Pallas
+    kernel (interpret mode) and the port's twin both return bf16. Tolerance:
+    the fp32 cases' 5e-3 plus one bf16 rounding of the output (2^-8 |ref|)."""
+    rng = np.random.default_rng(17)
+    c, t = 32, 600
+    params = _resblock_params(rng, c)
+    x = (rng.standard_normal((2, c, t)) * 0.3).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    ref = jax_group(jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16), params,
+                    kernel_sizes=KS, dilations=DS, time_tile=256, interpret=True)
+    got = _group_from_pairs(xb, params_to_torch(params), KS, DS, torch.bfloat16)
+    assert ref.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    ref32 = np.asarray(ref.astype(jnp.float32))
+    err = np.abs(got.float().numpy() - ref32)
+    assert np.all(err <= 5e-3 + 2.0 ** -8 * np.abs(ref32)), float(err.max())
 
 
 @pytest.mark.parametrize("k,u,c_in,c_out", [(24, 12, 64, 32), (20, 10, 32, 16),

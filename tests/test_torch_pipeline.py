@@ -204,3 +204,16 @@ def test_kernel_wrappers_import_and_run_plain_without_nvcc(monkeypatch):
     assert path.shape == (12,) and path.dtype == torch.int32
     assert viterbi.viterbi_path(torch.zeros(0, 360), 0).shape == (0,)
     assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("method,error,match", [
+    ("fcpe", NotImplementedError, "'fcpe' is not ported yet"),
+    ("harvest", ValueError, "unknown f0 method: harvest"),
+    ("RMVPE+", ValueError, "unknown f0 method: RMVPE\\+"),
+])
+def test_f0_method_names_outside_the_port(port_vc, method, error, match):
+    """fcpe, which the JAX package has, is not ported yet; a name the JAX
+    package rejects (f0_dispatch: "unknown f0 method") raises ValueError
+    here too."""
+    with pytest.raises(error, match=match):
+        port_vc.convert(_bench_song(1.0), ConversionOptions(f0_method=method))
