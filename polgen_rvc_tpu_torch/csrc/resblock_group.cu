@@ -20,20 +20,23 @@
 //   - rnd(lrelu(src)) over the tile plus both halos is staged once,
 //     time-major with channels contiguous (row stride C + 8: ldmatrix rows
 //     fall on distinct banks); every tap j reads it shifted by j*d rows;
-//   - conv1 runs M = time x N = output channels (chunks of OC) x K = C_in *
-//     k as an implicit GEMM on mma.sync m16n8k16 (bf16 operands, fp32
-//     accumulator), A and B fragments through ldmatrix.x4; each chunk of h
-//     is biased, activated, rounded, zeroed outside [0, T) and parked in
-//     shared memory;
+//   - conv1 runs M = time x N = all C output channels x K = C_in * k as an
+//     implicit GEMM on mma.sync m16n8k16 (bf16 operands, fp32 accumulator,
+//     64 a thread), A and B fragments through ldmatrix.x4; h is biased,
+//     activated, rounded, zeroed outside [0, T) and written over the
+//     staged rows, which conv1 no longer needs;
 //   - conv2 runs the same loop over h, whose first M - (k - 1) rows are the
 //     block's outputs (the halo recompute costs (k - 1) / M of the work);
 //     its epilogue adds bias and residual and writes the mode's result;
-//   - weights stream through a two-slot ring of (k, OC, 32 input channels)
-//     chunks (64-byte rows, 16-byte units XOR-swizzled against bank
-//     conflicts): cp.async brings chunk i + 1 while chunk i's products run.
-// Tiles: M = 256 at C = 32, 128 at C <= 128, 64 above (shared memory);
-// OC = 64 where it divides C, else 32; eight warps. Not here: wgmma, TMA,
-// clusters, persistent blocks, and the whole group in one pass.
+//   - weights stream through a three-slot ring of 16 KB chunks (taps x C
+//     output x 32 input channels; 64-byte rows, 16-byte units
+//     XOR-swizzled against bank conflicts): cp.async keeps two chunks in
+//     flight while one chunk's products run.
+// M * C = 16384 (M = 512 at C = 32 ... 64 at C = 256): ~100 KB of shared
+// memory, two blocks of eight warps an SM, so one block's staging and
+// epilogue overlap the other's products. Widths 96, 160, 192 and 224 take
+// a small generic tile (32 output channels a pass, h apart). Not here:
+// wgmma, TMA, clusters, persistent blocks, the whole group in one pass.
 #include "common.cuh"
 
 namespace {
@@ -62,8 +65,9 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// all but the newest group of copies have landed
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float lrelu(float v, float slope) {
@@ -72,8 +76,8 @@ __device__ __forceinline__ float lrelu(float v, float slope) {
 
 struct PairArgs {
   const void* src;                // (B, C, T) float32 or bf16
-  const __nv_bfloat16* w[2];      // (k, C_out, C_in) bf16, conv1 and conv2
-  const float* bias[2];           // (C,) float32
+  const __nv_bfloat16 *w1, *w2;   // (k, C_out, C_in) bf16
+  const float *b1, *b2;           // (C,) float32
   const float* acc;               // (B, C, T) float32 or null
   void* y;                        // (B, C, T) float32, or out's type in mode 2
   int C, T, k, dil;
@@ -83,34 +87,118 @@ struct PairArgs {
   int src_bf16, out_bf16;
 };
 
-// chunk (conv, oc, cc) of the ring: taps x OC output x KC input channels,
-// row R = j * OC + o, its four 16-byte units at u ^ ((R >> 1) & 3)
+// ring chunk (conv, oc, cc, tap group): taps [j0, j0 + nj) x OC output x
+// KC input channels, row R = (j - j0) * OC + o, its four 16-byte units at
+// u ^ ((R >> 1) & 3)
 template <int OC>
 __device__ __forceinline__ void load_chunk(const PairArgs& a, int conv, int oc,
-                                           int cc, __nv_bfloat16* buf) {
-  const __nv_bfloat16* w = a.w[conv];
+                                           int cc, int j0, int nj,
+                                           __nv_bfloat16* buf) {
+  const __nv_bfloat16* w = conv ? a.w2 : a.w1;
   const int C = a.C;
-  const int units = a.k * OC * 4;
-  for (int idx = threadIdx.x; idx < units; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < nj * OC * 4; idx += THREADS) {
     const int R = idx >> 2, u = idx & 3;
-    const int j = R / OC, o = R - j * OC;
+    const int jj = R / OC, o = R - jj * OC;
     cp_async16(smem_addr(buf + R * KC + ((u ^ ((R >> 1) & 3)) << 3)),
-               w + ((size_t)j * C + oc * OC + o) * C + cc * KC + u * 8);
+               w + ((size_t)(j0 + jj) * C + oc * OC + o) * C + cc * KC + u * 8);
   }
 }
 
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(h[e]);
+}
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(p[0]);
+}
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+// xs[r][c] = rnd(lrelu(src[c][xlo + r])), zero outside [0, T), for r in
+// [0, XR). Work items are (8 time steps, 2 channels), lanes along the
+// channel pairs (conflict-free 32-bit stores into the time-major rows);
+// 16-byte loads where the 8 steps lie inside [0, T) on an aligned row, and
+// two items a thread in flight before any store.
+template <typename SrcT>
+__device__ __forceinline__ void stage_src(const SrcT* src, __nv_bfloat16* xs,
+                                          int S, int C, int T, int xlo,
+                                          int XR, float slope) {
+  constexpr int V = 8, U = 2;
+  const int g_lo = floor_div(xlo, V);
+  const int n_groups = floor_div(xlo + XR - 1, V) - g_lo + 1;
+  const int pairs = C / 2, items = n_groups * pairs;
+  const bool aligned = T % V == 0;
+  for (int base = threadIdx.x; base < items; base += THREADS * U) {
+    float v[U][2][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = base + u * THREADS;
+      const int gi = idx / pairs, cp = idx - gi * pairs;
+      const int tg = (g_lo + gi) * V;
+      const size_t row = (size_t)(2 * cp) * T;
+      if (idx < items && aligned && tg >= 0 && tg + V <= T) {
+        load8(src + row + tg, v[u][0]);
+        load8(src + row + T + tg, v[u][1]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const int t = tg + e;
+          const bool in = idx < items && t >= 0 && t < T;
+          v[u][0][e] = in ? load1(src + row + t) : 0.f;
+          v[u][1][e] = in ? load1(src + row + T + t) : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = base + u * THREADS;
+      if (idx >= items) break;
+      const int gi = idx / pairs, cp = idx - gi * pairs;
+      const int r0 = (g_lo + gi) * V - xlo;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int r = r0 + e;
+        if (r < 0 || r >= XR) continue;
+        *reinterpret_cast<uint32_t*>(xs + r * S + 2 * cp) =
+            pack_bf16x2(__float2bfloat16(lrelu(v[u][0][e], slope)),
+                        __float2bfloat16(lrelu(v[u][1][e], slope)));
+      }
+    }
+  }
+}
+
+template <int OC>
+struct Ring {
+  static constexpr int TJ = OC >= 256 ? 1 : 256 / OC;  // taps a chunk: 16 KB
+  static constexpr int SLOTS = 3;                      // two chunks in flight
+  static constexpr int ELEMS = TJ * OC * KC;
+};
+
 template <int M, int OC, int MT, int NT>
-__global__ void __launch_bounds__(THREADS, 1) pair_kernel(const PairArgs a) {
+__global__ void __launch_bounds__(THREADS, 2) pair_kernel(const PairArgs a) {
   constexpr int WARPS_N = OC / (8 * NT);
   constexpr int WARPS_M = (THREADS / 32) / WARPS_N;
   static_assert(WARPS_M * 16 * MT == M, "warp tiles must cover M rows");
   static_assert(NT % 2 == 0, "B fragments come in pairs of n-tiles");
+  using R = Ring<OC>;
 
   const int C = a.C, T = a.T, k = a.k, dil = a.dil;
   const int S = C + 8;                 // activation row stride (bf16)
   const int ctr = (k - 1) / 2;
   const int XR = M + (k - 1) * dil;    // staged src rows
-  const int HR = M + k - 1;            // h rows (the last k - 1 stay zero)
   const int bn = M - (k - 1);          // outputs per block
   const int t0 = blockIdx.x * bn;
   const int b = blockIdx.y;
@@ -118,60 +206,52 @@ __global__ void __launch_bounds__(THREADS, 1) pair_kernel(const PairArgs a) {
   const int g = lane >> 2, q = lane & 3;
   const int wm = warp / WARPS_N, wn = warp - wm * WARPS_N;
 
+  // one output chunk (OC = C): h overwrites the staged rows once conv1 is
+  // done with them; else h has rows of its own
+  const int NO = C / OC, NC = C / KC, NG = (k + R::TJ - 1) / R::TJ;
+  const bool alias = NO == 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* hs = xs + XR * S;
-  __nv_bfloat16* wring = hs + HR * S;
-  const int chunk_elems = k * OC * KC;
+  __nv_bfloat16* hs = alias ? xs : xs + XR * S;
+  __nv_bfloat16* wring = xs + (alias ? XR : XR + M + k - 1) * S;
 
-  const int NO = C / OC, NC = C / KC, per_conv = NO * NC;
-  const int n_chunks = 2 * per_conv;
-  load_chunk<OC>(a, 0, 0, 0, wring);
-  cp_async_commit();
-
-  // h rows past M are read only by rows that are never stored
-  for (int idx = tid; idx < (HR - M) * (S / 2); idx += THREADS)
-    reinterpret_cast<uint32_t*>(hs + M * S)[idx] = 0u;
-
-  // rnd(lrelu(src)) over [t0 - ctr*(1+dil), +XR): consecutive threads read
-  // consecutive t of two channels and store one 32-bit word
-  const size_t plane = (size_t)C * T;
-  const int xlo = t0 - ctr * (1 + dil);
-  for (int idx = tid; idx < (C / 2) * XR; idx += THREADS) {
-    const int cp = idx / XR, r = idx - cp * XR;
-    const int t = xlo + r;
-    float v0 = 0.f, v1 = 0.f;
-    if (t >= 0 && t < T) {
-      const size_t i = b * plane + (size_t)(2 * cp) * T + t;
-      if (a.src_bf16) {
-        const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(a.src);
-        v0 = __bfloat162float(s[i]);
-        v1 = __bfloat162float(s[i + T]);
-      } else {
-        const float* s = static_cast<const float*>(a.src);
-        v0 = s[i];
-        v1 = s[i + T];
-      }
-      v0 = lrelu(v0, a.slope);
-      v1 = lrelu(v1, a.slope);
-    }
-    *reinterpret_cast<uint32_t*>(xs + r * S + 2 * cp) =
-        pack_bf16x2(__float2bfloat16(v0), __float2bfloat16(v1));
-  }
-
-  float acc[MT][NT][4];
-  for (int i = 0; i < n_chunks; ++i) {
-    cp_async_wait_all();
-    __syncthreads();  // chunk i (and the staged rows, h) visible; slot free
-    if (i + 1 < n_chunks) {
-      const int n = i + 1, cv = n / per_conv, rm = n - cv * per_conv;
-      load_chunk<OC>(a, cv, rm / NC, rm % NC, wring + (n & 1) * chunk_elems);
+  const int per_conv = NO * NC * NG, n_chunks = 2 * per_conv;
+  auto issue = [&](int n) {
+    if (n < n_chunks) {
+      const int cv = n / per_conv, rm = n - cv * per_conv;
+      const int oc = rm / (NC * NG), rc = rm - oc * NC * NG;
+      const int cc = rc / NG, j0 = (rc - cc * NG) * R::TJ;
+      load_chunk<OC>(a, cv, oc, cc, j0, min(R::TJ, k - j0),
+                     wring + (n % R::SLOTS) * R::ELEMS);
     }
     cp_async_commit();
+  };
+  issue(0);
+  issue(1);
 
-    const int conv = i / per_conv, rem = i - conv * per_conv;
-    const int oc = rem / NC, cc = rem - oc * NC;
-    if (cc == 0) {
+  // rnd(lrelu(src)) over [t0 - ctr*(1+dil), +XR)
+  const size_t plane = (size_t)C * T;
+  const int xlo = t0 - ctr * (1 + dil);
+  if (a.src_bf16)
+    stage_src(static_cast<const __nv_bfloat16*>(a.src) + b * plane, xs, S, C, T,
+              xlo, XR, a.slope);
+  else
+    stage_src(static_cast<const float*>(a.src) + b * plane, xs, S, C, T, xlo,
+              XR, a.slope);
+
+  const int b_row = wn * NT * 8 + (lane & 7) + ((lane >> 4) << 3);
+  const int b_unit = (lane >> 3) & 1;
+  float acc[MT][NT][4];
+  for (int i = 0; i < n_chunks; ++i) {
+    cp_async_wait_one();
+    __syncthreads();  // chunk i (and the staged rows, h) visible; slot free
+    issue(i + 2);
+
+    const int conv = i / per_conv, rm = i - conv * per_conv;
+    const int oc = rm / (NC * NG), rc = rm - oc * NC * NG;
+    const int cc = rc / NG, j0 = (rc - cc * NG) * R::TJ;
+    const int nj = min(R::TJ, k - j0);
+    if (cc == 0 && j0 == 0) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -181,86 +261,86 @@ __global__ void __launch_bounds__(THREADS, 1) pair_kernel(const PairArgs a) {
     }
     const __nv_bfloat16* act = conv == 0 ? xs : hs;
     const int shift = conv == 0 ? dil : 1;
-    const __nv_bfloat16* wb = wring + (i & 1) * chunk_elems;
+    const __nv_bfloat16* wb = wring + (i % R::SLOTS) * R::ELEMS;
     const uint32_t a_base = smem_addr(
-        act + (wm * MT * 16 + (lane & 15)) * S + cc * KC + (lane >> 4) * 8);
-    const int b_row = wn * NT * 8 + (lane & 7) + ((lane >> 4) << 3);
-    const int b_unit = (lane >> 3) & 1;
-    for (int j = 0; j < k; ++j) {
+        act + (wm * MT * 16 + (lane & 15) + j0 * shift) * S + cc * KC + (lane >> 4) * 8);
+    for (int jj = 0; jj < nj; ++jj) {
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         uint32_t af[MT][4];
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
-          ldmatrix_x4(af[mt], a_base + ((mt * 16 + j * shift) * S + kk * 16) * 2);
-        uint32_t bfr[NT][2];
+          ldmatrix_x4(af[mt], a_base + ((mt * 16 + jj * shift) * S + kk * 16) * 2);
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
-          const int R = j * OC + b_row + np * 16;
-          const int u = (kk * 2 + b_unit) ^ ((R >> 1) & 3);
-          uint32_t r4[4];
-          ldmatrix_x4(r4, smem_addr(wb + R * KC + u * 8));
-          bfr[2 * np][0] = r4[0];
-          bfr[2 * np][1] = r4[1];
-          bfr[2 * np + 1][0] = r4[2];
-          bfr[2 * np + 1][1] = r4[3];
+          const int row = jj * OC + b_row + np * 16;
+          uint32_t bf[4];
+          ldmatrix_x4(bf, smem_addr(wb + row * KC +
+                                    (((kk * 2 + b_unit) ^ ((row >> 1) & 3)) << 3)));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16_16816(acc[mt][2 * np], af[mt], bf);
+            mma_bf16_16816(acc[mt][2 * np + 1], af[mt], bf + 2);
+          }
         }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(acc[mt][nt], af[mt], bfr[nt]);
       }
     }
-    if (cc != NC - 1) continue;
+    if (cc != NC - 1 || j0 + nj != k) continue;
 
-    const float* bias = a.bias[conv];
+    if (conv == 0) {
+      if (alias) __syncthreads();  // every warp is done reading xs
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int p = wm * MT * 16 + mt * 16 + g + half * 8;
+          const int t = t0 - ctr + p;
+          const bool in = t >= 0 && t < T;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int o = oc * OC + wn * NT * 8 + nt * 8 + 2 * q;
+            const float v0 = lrelu(acc[mt][nt][half * 2] + __ldg(a.b1 + o), a.slope);
+            const float v1 = lrelu(acc[mt][nt][half * 2 + 1] + __ldg(a.b1 + o + 1), a.slope);
+            *reinterpret_cast<uint32_t*>(hs + p * S + o) = pack_bf16x2(
+                __float2bfloat16(in ? v0 : 0.f), __float2bfloat16(in ? v1 : 0.f));
+          }
+        }
+      continue;
+    }
+    // conv2: per row group, every residual (and running-sum) value is
+    // loaded before the first store (acc may be y), so the loads overlap
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int p = wm * MT * 16 + mt * 16 + g + half * 8;
+        const int t = t0 + p;
+        if (p >= bn || t >= T) continue;
+        const size_t ib = b * plane + t;
+        float res[NT][2], run[NT][2];
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          const int o = oc * OC + wn * NT * 8 + nt * 8 + 2 * q;
-          float v0 = acc[mt][nt][half * 2] + bias[o];
-          float v1 = acc[mt][nt][half * 2 + 1] + bias[o + 1];
-          if (conv == 0) {
-            const int t = t0 - ctr + p;
-            const bool in = t >= 0 && t < T;
-            v0 = in ? lrelu(v0, a.slope) : 0.f;
-            v1 = in ? lrelu(v1, a.slope) : 0.f;
-            *reinterpret_cast<uint32_t*>(hs + p * S + o) =
-                pack_bf16x2(__float2bfloat16(v0), __float2bfloat16(v1));
-            continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const size_t i = ib + (size_t)(oc * OC + wn * NT * 8 + nt * 8 + 2 * q + e) * T;
+            res[nt][e] = a.src_bf16 ? load1(static_cast<const __nv_bfloat16*>(a.src) + i)
+                                    : load1(static_cast<const float*>(a.src) + i);
+            run[nt][e] = a.acc ? a.acc[i] : 0.f;
           }
-          const int t = t0 + p;
-          if (p >= bn || t >= T) continue;
-          const size_t i0 = b * plane + (size_t)o * T + t, i1 = i0 + T;
-          if (a.src_bf16) {
-            const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(a.src);
-            v0 += __bfloat162float(s[i0]);
-            v1 += __bfloat162float(s[i1]);
-          } else {
-            const float* s = static_cast<const float*>(a.src);
-            v0 += s[i0];
-            v1 += s[i1];
-          }
-          if (a.acc) {
-            v0 = a.acc[i0] + v0;
-            v1 = a.acc[i1] + v1;
-          }
-          if (a.mode < 2) {
-            float* y = static_cast<float*>(a.y);
-            y[i0] = v0;
-            y[i1] = v1;
-          } else if (a.out_bf16) {
-            __nv_bfloat16* y = static_cast<__nv_bfloat16*>(a.y);
-            y[i0] = __float2bfloat16(v0 / a.n_res);
-            y[i1] = __float2bfloat16(v1 / a.n_res);
-          } else {
-            float* y = static_cast<float*>(a.y);
-            y[i0] = v0 / a.n_res;
-            y[i1] = v1 / a.n_res;
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int o = oc * OC + wn * NT * 8 + nt * 8 + 2 * q + e;
+            const size_t i = ib + (size_t)o * T;
+            float v = acc[mt][nt][half * 2 + e] + __ldg(a.b2 + o) + res[nt][e];
+            if (a.acc) v = run[nt][e] + v;
+            if (a.mode < 2) static_cast<float*>(a.y)[i] = v;
+            else if (a.out_bf16)
+              static_cast<__nv_bfloat16*>(a.y)[i] = __float2bfloat16(v / a.n_res);
+            else
+              static_cast<float*>(a.y)[i] = v / a.n_res;
           }
         }
       }
@@ -271,9 +351,8 @@ __global__ void __launch_bounds__(THREADS, 1) pair_kernel(const PairArgs a) {
 template <int M, int OC, int MT, int NT>
 cudaError_t launch_tile(const PairArgs& a, int B, cudaStream_t stream) {
   const int S = a.C + 8;
-  const size_t smem =
-      ((size_t)(M + (a.k - 1) * a.dil) + (M + a.k - 1)) * S * 2 +
-      2 * (size_t)a.k * OC * KC * 2;
+  const size_t rows = (size_t)M + (a.k - 1) * a.dil + (a.C == OC ? 0 : M + a.k - 1);
+  const size_t smem = rows * S * 2 + Ring<OC>::SLOTS * Ring<OC>::ELEMS * 2;
   if (a.k > M || smem > SMEM_MAX) return cudaErrorInvalidValue;
   auto kern = pair_kernel<M, OC, MT, NT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -302,10 +381,10 @@ POLGEN_API int resblock_pair(const void* src, const void* w1, const void* b1,
     return (int)cudaErrorInvalidValue;
   PairArgs a;
   a.src = src;
-  a.w[0] = static_cast<const __nv_bfloat16*>(w1);
-  a.w[1] = static_cast<const __nv_bfloat16*>(w2);
-  a.bias[0] = static_cast<const float*>(b1);
-  a.bias[1] = static_cast<const float*>(b2);
+  a.w1 = static_cast<const __nv_bfloat16*>(w1);
+  a.w2 = static_cast<const __nv_bfloat16*>(w2);
+  a.b1 = static_cast<const float*>(b1);
+  a.b2 = static_cast<const float*>(b2);
   a.acc = static_cast<const float*>(acc);
   a.y = y;
   a.C = C;
@@ -319,10 +398,12 @@ POLGEN_API int resblock_pair(const void* src, const void* w1, const void* b1,
   a.out_bf16 = out_bf16;
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (C == 32) err = launch_tile<256, 32, 2, 4>(a, B, s);
-  else if (C <= 128) err = C % 64 ? launch_tile<128, 32, 1, 4>(a, B, s)
-                                  : launch_tile<128, 64, 2, 4>(a, B, s);
-  else err = C % 64 ? launch_tile<64, 32, 1, 2>(a, B, s)
-                    : launch_tile<64, 64, 2, 2>(a, B, s);
+  switch (C) {
+    case 32: err = launch_tile<512, 32, 4, 4>(a, B, s); break;
+    case 64: err = launch_tile<256, 64, 4, 4>(a, B, s); break;
+    case 128: err = launch_tile<128, 128, 2, 8>(a, B, s); break;
+    case 256: err = launch_tile<64, 256, 2, 8>(a, B, s); break;
+    default: err = launch_tile<64, 32, 1, 2>(a, B, s);  // 96, 160, 192, 224
+  }
   return (int)err;
 }
