@@ -3,8 +3,8 @@
 //
 //   h = rnd(lrelu(conv_{k,d}(rnd(lrelu(src))) + b1))   h = 0 outside [0, T)
 //   v = conv_{k,1}(h) + b2 + src
-//   mode 0: y = v        mode 1: y = acc + v (acc may be y)
-//   mode 2: out = (acc + v) / n_res, or v / n_res without acc, in out's type
+//   not last: y = v, or y = acc + v (acc may be y), float32
+//   last:     y = (acc + v) / n_res, or v / n_res without acc, in y's type
 //
 // rnd rounds fp32 to bf16; src (float32 or bf16) is read as zero outside
 // [0, T). Replaces polgen_rvc_tpu/ops/pallas_resblock.py:
@@ -27,7 +27,7 @@
 //     staged rows, which conv1 no longer needs;
 //   - conv2 runs the same loop over h, whose first M - (k - 1) rows are the
 //     block's outputs (the halo recompute costs (k - 1) / M of the work);
-//     its epilogue adds bias and residual and writes the mode's result;
+//     its epilogue adds bias and residual and writes the result;
 //   - weights stream through a three-slot ring of 16 KB chunks (taps x C
 //     output x 32 input channels; 64-byte rows, 16-byte units
 //     XOR-swizzled against bank conflicts): cp.async keeps two chunks in
@@ -79,10 +79,10 @@ struct PairArgs {
   const __nv_bfloat16 *w1, *w2;   // (k, C_out, C_in) bf16
   const float *b1, *b2;           // (C,) float32
   const float* acc;               // (B, C, T) float32 or null
-  void* y;                        // (B, C, T) float32, or out's type in mode 2
+  void* y;                        // (B, C, T) float32, or bf16 when last
   int C, T, k, dil;
   float slope;
-  int mode;
+  int last;
   float n_res;
   int src_bf16, out_bf16;
 };
@@ -336,7 +336,7 @@ __global__ void __launch_bounds__(THREADS, 2) pair_kernel(const PairArgs a) {
             const size_t i = ib + (size_t)o * T;
             float v = acc[mt][nt][half * 2 + e] + __ldg(a.b2 + o) + res[nt][e];
             if (a.acc) v = run[nt][e] + v;
-            if (a.mode < 2) static_cast<float*>(a.y)[i] = v;
+            if (!a.last) static_cast<float*>(a.y)[i] = v;
             else if (a.out_bf16)
               static_cast<__nv_bfloat16*>(a.y)[i] = __float2bfloat16(v / a.n_res);
             else
@@ -368,16 +368,15 @@ cudaError_t launch_tile(const PairArgs& a, int B, cudaStream_t stream) {
 
 // src, acc, y: (B, C, T); w1, w2: (k, C, C) bf16 [tap][out][in]; b1, b2 (C,)
 // float32. src is bf16 when src_bf16, else float32; acc float32 or null;
-// y float32 in modes 0 and 1, bf16 (out_bf16) or float32 in mode 2. y may
+// y float32, or bf16 (out_bf16) for the last pair of a group. y may
 // be acc, never src. C a multiple of 32 up to 256, k odd.
 POLGEN_API int resblock_pair(const void* src, const void* w1, const void* b1,
                              const void* w2, const void* b2, const void* acc,
                              void* y, int B, int C, int T, int k, int dil,
-                             float slope, int mode, float n_res, int src_bf16,
+                             float slope, int last, float n_res, int src_bf16,
                              int out_bf16, void* stream) {
   if (C % 32 != 0 || C < 32 || C > 256 || B < 1 || B > 65535 || T < 1 ||
-      k < 1 || k % 2 == 0 || dil < 1 || mode < 0 || mode > 2 ||
-      (mode == 1 && acc == nullptr))
+      k < 1 || k % 2 == 0 || dil < 1)
     return (int)cudaErrorInvalidValue;
   PairArgs a;
   a.src = src;
@@ -392,7 +391,7 @@ POLGEN_API int resblock_pair(const void* src, const void* w1, const void* b1,
   a.k = k;
   a.dil = dil;
   a.slope = slope;
-  a.mode = mode;
+  a.last = last;
   a.n_res = n_res;
   a.src_bf16 = src_bf16;
   a.out_bf16 = out_bf16;

@@ -174,7 +174,7 @@ def resblock_pair(src, conv1, conv2, kernel_size: int, dilation: int, *,
         cuda_build.ptr(conv2["b"]),
         cuda_build.ptr(acc) if acc is not None else ctypes.c_void_p(None),
         cuda_build.ptr(out), b, c, t, kernel_size, dilation, slope,
-        2 if last else (1 if acc is not None else 0), float(n_res),
+        int(last), float(n_res),
         int(src.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16),
     )
     fused_resblock_group.launches += 1
