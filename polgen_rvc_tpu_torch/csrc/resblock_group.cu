@@ -216,7 +216,7 @@ __global__ void __launch_bounds__(THREADS, 2) pair_kernel(const PairArgs a) {
   __nv_bfloat16* wring = xs + (alias ? XR : XR + M + k - 1) * S;
 
   const int per_conv = NO * NC * NG, n_chunks = 2 * per_conv;
-  auto issue = [&](int n) {
+  auto fetch = [&](int n) {
     if (n < n_chunks) {
       const int cv = n / per_conv, rm = n - cv * per_conv;
       const int oc = rm / (NC * NG), rc = rm - oc * NC * NG;
@@ -226,8 +226,8 @@ __global__ void __launch_bounds__(THREADS, 2) pair_kernel(const PairArgs a) {
     }
     cp_async_commit();
   };
-  issue(0);
-  issue(1);
+  fetch(0);
+  fetch(1);
 
   // rnd(lrelu(src)) over [t0 - ctr*(1+dil), +XR)
   const size_t plane = (size_t)C * T;
@@ -245,7 +245,7 @@ __global__ void __launch_bounds__(THREADS, 2) pair_kernel(const PairArgs a) {
   for (int i = 0; i < n_chunks; ++i) {
     cp_async_wait_one();
     __syncthreads();  // chunk i (and the staged rows, h) visible; slot free
-    issue(i + 2);
+    fetch(i + 2);
 
     const int conv = i / per_conv, rm = i - conv * per_conv;
     const int oc = rm / (NC * NG), rc = rm - oc * NC * NG;
