@@ -17,7 +17,8 @@ printing one JSON line (any failure raises; exit code != 0):
                0, one timed convert runs, and the counts are read: every
                kernel of the path must have launched (all but viterbi), the
                resblock-group kernel exactly 36 times (4 stages x 9 conv
-               pairs, one chunk batch).
+               pairs, one chunk batch), the U-Net chain kernel exactly 112
+               times (14 levels x 4 blocks x 2 convs).
                The output must have the planned length and not be silent.
   profile:     one more convert under torch.profiler: the device's busy
                and idle share of the wall time, and kernels by device time.
@@ -34,14 +35,19 @@ printing one JSON line (any failure raises; exit code != 0):
                in the kernel's working precision, with the tolerance
                printed (the Viterbi path exactly), and one launch of each
                conv kernel against its plain twin at fp32 summation order
-               (the resblock group: one conv pair; conv-transpose and the
-               resblock group: the fp32 route beside the bf16 one);
+               (the resblock group: one conv pair; the U-Net chain: one
+               conv into bf16 h, into the fp32 block output and into x's
+               dtype; conv-transpose, the resblock group and the U-Net
+               chain: the fp32 route beside the bf16 one);
                timed beside the plain twin, a single PyTorch call where one
                computes the same function, and the bound (bytes over
                3.35 TB/s or operations over the peak rate of the operands'
                type). Per shape numbers included; for the resblock group
-               also its TFLOP/s, the HBM bytes its design moves, and the
-               cuDNN yardstick (its 18 convs as bf16 F.conv1d calls).
+               and the U-Net chain (per level) also their TFLOP/s, the HBM
+               bytes their design moves, and a cuDNN yardstick (the
+               group's 18 convs as bf16 F.conv1d calls, the level's 8 3x3
+               convs and its 1x1 shortcut as bf16 F.conv2d calls); for the
+               U-Net chain the tile and grid of each level's launches.
   4. reference: the same full-width models on a 2 s input, on the card
                (bf16) and on the CPU (float32 plain twins), same noise.
                The two rmvpe+ F0 passes agree on >= 90% of coarse bins, and
@@ -272,6 +278,25 @@ def resblock_design_bytes(x, dilations) -> int:
     return total
 
 
+def unet_design_bytes(x, blocks) -> int:
+    """HBM bytes one U-Net level moves in the chain kernel's design: per
+    launch its input read once (x's type for the first block, bf16 h for
+    every conv2, the fp32 block output after), the residual or shortcut
+    input read once (x's type, then fp32), and its output written once
+    (bf16 h, the fp32 block output, x's type for the last). The halo and
+    per-tile restaging of the input count as L2 hits, the weights apart."""
+    b, c, t, w = x.shape
+    n, xs = b * t * w, x.element_size()
+    total, ci, cs = 0, c, xs
+    for i, blk in enumerate(blocks):
+        co = blk["conv1"]["w"].shape[0]
+        last = i == len(blocks) - 1
+        total += n * (ci * cs + co * 2)                              # conv1
+        total += n * (co * 2 + ci * cs + co * (xs if last else 4))   # conv2
+        ci, cs = co, 4
+    return total
+
+
 def structured_log_obs(t: int, n: int, seed: int = 0):
     """(t, 360) Viterbi log observations: a random-walk peak over low noise,
     masked edges, a block of all-tie frames, garbage rows past n."""
@@ -480,38 +505,100 @@ def check_kernels(calls: dict) -> dict:
             {"rel_value_term": {"max_abs_err": band_err, "tolerance": band_tol,
                                 **abs_stats(band_ref * valid)}})
 
+    unet_cudnn_ms = 0.0
     for e in calls["unet_chain"].values():
         x, blocks = e["args"]
         b, c, t, w = x.shape
+        c_out = blocks[-1]["conv2"]["w"].shape[0]
+        # bf16 operands both sides; one-ulp re-rounding between 8 convs. The
+        # fp32 route first, then the route the U-Net takes (x's dtype, bf16
+        # in a bf16 engine; its one rounding of the output is inside)
         x32 = x.float().contiguous()
-        got = uc.convblock_chain(x32, blocks)
         ref = uc.convblock_chain_plain(x32, blocks, operand_dtype=bf16)
-        err = float((got - ref).abs().max())
-        # bf16 operands both sides; one-ulp re-rounding between 8 convs
-        tol = 1e-2 * float(ref.abs().max())
-        # one launch of each epilogue: the first block's conv1 (bias, ReLU)
-        # and its conv2 with the residual or 1x1 shortcut of the block input
+        got = uc.convblock_chain(x32, blocks)
+        fp32_err, fp32_tol = float((got - ref).abs().max()), 1e-2 * float(ref.abs().max())
+        if not fp32_err <= fp32_tol:
+            raise AssertionError(f"unet_chain fp32 route {list(x.shape)}: "
+                                 f"{fp32_err} > {fp32_tol}")
+        ref = uc.convblock_chain_plain(x, blocks, operand_dtype=bf16).float()
+        got = uc.convblock_chain(x, blocks)
+        if got.dtype != x.dtype:
+            raise AssertionError(f"unet_chain returned {got.dtype} for {x.dtype} x")
+        err, tol = float((got.float() - ref).abs().max()), 1e-2 * float(ref.abs().max())
+        # one launch of each output kind against unet_conv3x3_plain on the
+        # same input: the first block's conv1 into bf16 h (fp32 order plus
+        # one rounding of the output, 2^-8 |ref|), its conv2 with the
+        # residual or 1x1 shortcut of the block input into the fp32 block
+        # output, and the last block's conv2 into x's dtype
+        # (a direct launch takes a contiguous x; the chain makes it so)
+        xc = x.contiguous()
         blk = blocks[0]
         c1, c2, sc = blk["conv1"], blk["conv2"], blk.get("shortcut")
-        y = F.relu(F.conv2d(rnd(x32), rnd(c1["w"]), c1["b"], padding=1))
-        one1 = single(uc.unet_conv3x3(x32, c1), y)
-        res = x32 if sc is None else F.conv2d(x32, rnd(sc["w"]), sc["b"])
-        one2 = single(uc.unet_conv3x3(y, c2, res=x32, shortcut=sc),
-                      F.relu(F.conv2d(rnd(y), rnd(c2["w"]), c2["b"], padding=1)) + res)
+        h_ref = uc.unet_conv3x3_plain(xc, c1)
+        h_got = uc.unet_conv3x3(xc, c1, out_dtype=bf16)
+        h_lim = 2.0 ** -8 * h_ref.abs() + 1e-4 * float(h_ref.abs().max()) + 1e-5
+        if h_got.dtype != bf16 or not bool(((h_got.float() - h_ref).abs() <= h_lim).all()):
+            raise AssertionError("unet_chain conv1 -> bf16 h: error above fp32 order "
+                                 "+ one bf16 rounding")
+        one = {"fp32_route": {"max_abs_err": fp32_err, "tolerance": fp32_tol},
+               "conv1_bf16_h": {"max_abs_err": float((h_got.float() - h_ref).abs().max()),
+                                **abs_stats(h_ref)},
+               "conv2_fp32_cur": single(uc.unet_conv3x3(h_got, c2, res=xc, shortcut=sc),
+                                        uc.unet_conv3x3_plain(h_got, c2, res=xc,
+                                                              shortcut=sc))}
+        last = blocks[-1]
+        h_last = torch.randn(b, c_out, t, w, device=x.device).to(bf16)
+        cur_in = torch.randn(b, c_out, t, w, device=x.device) if len(blocks) > 1 else xc
+        l_ref = uc.unet_conv3x3_plain(h_last, last["conv2"], res=cur_in,
+                                      shortcut=last.get("shortcut"))
+        l_got = uc.unet_conv3x3(h_last, last["conv2"], res=cur_in,
+                                shortcut=last.get("shortcut"), out_dtype=x.dtype).float()
+        l_lim = (2.0 ** -8 * l_ref.abs() if x.dtype == bf16 else 0.0) + \
+            1e-4 * float(l_ref.abs().max()) + 1e-5
+        if not bool(((l_got - l_ref).abs() <= l_lim).all()):
+            raise AssertionError("unet_chain last conv2 -> x's dtype: error above "
+                                 "fp32 order (+ one rounding)")
+        one["conv2_last_x_dtype"] = {"max_abs_err": float((l_got - l_ref).abs().max()),
+                                     **abs_stats(l_ref)}
+        del xc, h_ref, h_got, h_last, cur_in, l_ref, l_got
         flops = 0.0
+        convs = []
+        ci = c
         for blk in blocks:
-            co, ci = blk["conv1"]["w"].shape[:2]
+            co = blk["conv1"]["w"].shape[0]
             flops += 2.0 * 9 * b * t * w * (ci * co + co * co)
+            convs += [(blk["conv1"]["w"].to(bf16), blk["conv1"]["b"].to(bf16), 1),
+                      (blk["conv2"]["w"].to(bf16), blk["conv2"]["b"].to(bf16), 1)]
             if "shortcut" in blk:
                 flops += 2.0 * b * t * w * ci * co
-        c_out = blocks[-1]["conv2"]["w"].shape[0]
-        add("unet_chain", err, tol, ref,
-            cuda_ms(lambda: uc.convblock_chain(x, blocks)),
+                convs.append((blk["shortcut"]["w"].to(bf16),
+                              blk["shortcut"]["b"].to(bf16), 0))
+            ci = co
+        xb = x.to(bf16)
+        cin_of = [cv[0].shape[1] for cv in convs]
+        inputs = {ci: xb if ci == c else torch.randn(b, ci, t, w, device=x.device,
+                                                     dtype=bf16) for ci in set(cin_of)}
+
+        def cudnn_convs():
+            for (wt, bb, pad), ci in zip(convs, cin_of):
+                F.conv2d(inputs[ci], wt, bb, padding=pad)
+
+        cudnn_ms = cuda_ms(cudnn_convs)
+        unet_cudnn_ms += cudnn_ms * e["count"]
+        ms = cuda_ms(lambda: uc.convblock_chain(x, blocks))
+        tile = uc.unet_conv3x3_tile(c_out, w)
+        moved = unet_design_bytes(x, blocks) + nbytes(*packed_tensors(blocks))
+        one.update({"cudnn_convs_ms": cudnn_ms, "tflop_per_s": flops / ms / 1e9,
+                    "tile": tile, "grid": [-(-t // tile["tt"]), c_out // tile["bm"], b],
+                    "design_hbm_bytes": moved, "design_tb_per_s": moved / ms / 1e9})
+        del inputs
+        add("unet_chain", err, tol, ref, ms,
             cuda_ms(lambda: uc.convblock_chain_plain(x, blocks, operand_dtype=bf16)),
             None, flops,
             nbytes(x, *packed_tensors(blocks)) + b * c_out * t * w * x.element_size(),
-            bf16, e["count"], [b, c, c_out, t, w],
-            {"conv1": one1, "conv2": one2})
+            bf16, e["count"], [b, c, c_out, t, w, str(x.dtype)], one)
+    if "unet_chain" in out:
+        out["unet_chain"]["cudnn_convs_ms"] = unet_cudnn_ms
 
     for e in calls["viterbi"].values():
         log_obs, n = e["args"]
@@ -592,6 +679,13 @@ def check_resblock_launches(run: dict, path: str):
                              f"{run['launches']['resblock_group']} times, not 36")
 
 
+def check_unet_launches(run: dict, path: str):
+    """One launch per 3x3 conv: 14 U-Net levels x 4 blocks x 2 convs."""
+    if run["launches"]["unet_chain"] != 112:
+        raise AssertionError(f"{path}: unet_chain launched "
+                             f"{run['launches']['unet_chain']} times, not 112")
+
+
 def main() -> int:
     import torch
 
@@ -666,6 +760,7 @@ def main() -> int:
                  launched=(*synth_kernels, "unet_chain"), idle=("viterbi",))
     launches = dict(run["launches"])
     check_resblock_launches(run, "main path")
+    check_unet_launches(run, "main path")
     del vc, run
 
     # ---- mangio-crepe path -------------------------------------------------
@@ -788,7 +883,15 @@ def main() -> int:
                                  "over the stages; leaves out the lrelu, residual "
                                  "and mean passes; no one call computes the group "
                                  "and the port never calls it"}
-            if name == "resblock_group" else {})}
+            if name == "resblock_group" else {}),
+         **({"cudnn_convs_ms": kernels[name]["cudnn_convs_ms"],
+             "cudnn_convs_note": "yardstick, not library_ms: each level's 8 3x3 "
+                                 "convs and its 1x1 shortcut as bf16 F.conv2d "
+                                 "calls at the same shapes, summed over the 14 "
+                                 "levels; leaves out the ReLU and residual "
+                                 "passes; no one call computes the chain and "
+                                 "the port never calls it"}
+            if name == "unet_chain" else {})}
         for name in wrappers
     ]}
     emit(line)

@@ -10,11 +10,15 @@ Replaces polgen_rvc_tpu/ops/pallas_unet2d.py:fused_convblock_chain_folded
 CUDA tensor ``convblock_chain`` launches the sm_90a kernel of
 csrc/unet_chain.cu twice per block, at every U-Net level (C = 16..512,
 W = 128..4); bound and design are in the kernel source. On a CPU tensor it
-runs ``convblock_chain_plain``. The kernel reads its weights in its own
-layout, which ``pack_unet_weights`` adds once when the weights load.
+runs ``convblock_chain_plain``; ``unet_conv3x3_plain`` is the plain version
+of one launch. The kernel reads its weights in its own layout, which
+``pack_unet_weights`` adds once when the weights load.
 
-Working precision: bf16 operands (the 1x1 shortcut's input stays fp32, as
-in the TPU kernel), fp32 accumulation and residuals, result in x's dtype.
+Working precision: bf16 operands (the 1x1 shortcut's input stays at full
+precision, as in the TPU kernel), fp32 accumulation. Between launches h,
+a block's hidden activation, is bf16 (the operand the next conv rounds it
+to anyway) and each block's output fp32; the chain reads x in its own
+dtype and its last launch writes x's dtype, with no cast pass.
 """
 
 from __future__ import annotations
@@ -48,12 +52,46 @@ def convblock_chain_plain(x, blocks, *, operand_dtype=None):
     return h.to(x.dtype)
 
 
+def unet_conv3x3_plain(src, conv, *, res=None, shortcut=None,
+                       out_dtype=torch.float32):
+    """Plain twin of one kernel launch:
+
+        out = relu(conv3x3(rnd(src), rnd(w)) + b)  (+ res, or + the 1x1
+              shortcut rnd(W_sc) . res + b_sc of the block input res)
+
+    rnd rounds to bf16; res is read at full precision; the result is
+    rounded once to out_dtype. Per block, conv1 with out_dtype bf16 and
+    conv2 with res = the block input (fp32, or x's dtype for the last
+    block) compose to convblock_chain_plain(..., operand_dtype=bf16) bit
+    for bit."""
+
+    def rnd(t):
+        return t.to(torch.bfloat16).float()
+
+    y = F.relu(F.conv2d(rnd(src.float()), rnd(conv["w"].float()),
+                        conv["b"].float(), padding=1))
+    if shortcut is not None:
+        y = y + F.conv2d(res.float(), rnd(shortcut["w"].float()),
+                         shortcut["b"].float())
+    elif res is not None:
+        y = y + res.float()
+    return y.to(out_dtype)
+
+
+def padded_channels(c_in, c_out):
+    """C_in rounded up to the kernel's channel chunk: 32 for a conv with
+    C_out a multiple of 32 from 64 up, else 16 (C_in = 1 becomes 16)."""
+    kc = 32 if c_out % 32 == 0 and c_out >= 64 else 16
+    return c_in + (-c_in % kc)
+
+
 def pack_taps_3x3(w):
-    """(C_out, C_in, 3, 3) -> (9, C_out, C_in rounded up to 32): tap
-    dt*3 + dw, zero channels added (the kernel stages 32 at a time)."""
+    """(C_out, C_in, 3, 3) -> (9, C_out, padded_channels(C_in, C_out)):
+    tap dt*3 + dw, zero channels added (the kernel stages a chunk of 16 or
+    32 input channels at a time)."""
     c_out, c_in = w.shape[:2]
     taps = w.permute(2, 3, 0, 1).reshape(9, c_out, c_in)
-    return F.pad(taps, (0, -c_in % 32)).contiguous()
+    return F.pad(taps, (0, padded_channels(c_in, c_out) - c_in)).contiguous()
 
 
 def pack_unet_weights(blocks):
@@ -75,58 +113,92 @@ def pack_unet_weights(blocks):
     return out
 
 
-def _check(t, shape, dtype, device, what):
-    if (t is None or t.shape != shape or t.dtype != dtype or t.device != device
-            or not t.is_contiguous()):
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _check(t, shape, dtypes, device, what):
+    if (t is None or t.shape != shape or t.dtype not in dtypes or t.device != device
+            or not t.is_contiguous() or t.data_ptr() % 16):
         got = "missing" if t is None else f"{tuple(t.shape)} {t.dtype} on {t.device}"
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
         raise ValueError(f"convblock_chain: {what} is {got}, the kernel takes "
-                         f"contiguous {shape} {dtype} on {device} "
-                         "(pack_unet_weights, once at load)")
+                         f"contiguous, 16-byte aligned {shape} {names} on {device} "
+                         "(weights: pack_unet_weights, once at load)")
 
 
-def unet_conv3x3(x, conv, *, res=None, shortcut=None, out=None):
-    """One launch of the kernel on fp32 (B, C_in, T, W) CUDA tensors and a
-    packed conv: out = relu(conv3x3(x) + bias) (+ res, or + the 1x1
-    shortcut of the (B, C_res, T, W) block input res). Returns out."""
-    if x.device.type != "cuda":
-        raise ValueError(f"unet_conv3x3: launches on CUDA tensors only, not {x.device}")
-    b, c_in, t, w = x.shape
-    c_out = conv["w"].shape[0]
-    if c_out % 16:
+def _check_geometry(c_out, w):
+    if c_out % 16 or c_out < 16:
         raise ValueError(f"convblock_chain: C_out={c_out} is not a multiple of 16")
-    if w > 128 or 128 % w:
-        raise ValueError(f"convblock_chain: W={w} must divide 128")
-    dev, f32 = x.device, torch.float32
-    _check(x, (b, c_in, t, w), f32, dev, "x")
-    _check(conv.get("w_taps"), (9, c_out, c_in + (-c_in % 32)), torch.bfloat16,
-           dev, "the packed 3x3 weight")
-    _check(conv["b"], (c_out,), f32, dev, "the bias")
+    if not 4 <= w <= 128 or 128 % w:
+        raise ValueError(f"convblock_chain: W={w} must divide 128, from 4 up")
+
+
+def unet_conv3x3_tile(c_out, w):
+    """The kernel's tile at (C_out, W), from the kernel itself:
+    {"bm": output channels, "n": positions, "tt": frames, "kc": input
+    channels a chunk} of one block (CUDA only: it loads the library)."""
+    _check_geometry(c_out, w)
+    out = (ctypes.c_int * 4)()
+    fn = cuda_build.load("unet_chain").unet_conv3x3_tile
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if fn(c_out, w, ctypes.cast(out, ctypes.c_void_p)) != 0:
+        raise ValueError(f"unet_conv3x3_tile: C_out={c_out}, W={w} refused")
+    return dict(zip(("bm", "n", "tt", "kc"), out))
+
+
+def unet_conv3x3(src, conv, *, res=None, shortcut=None, out_dtype=torch.float32,
+                 out=None):
+    """One launch of the kernel on (B, C_in, T, W) CUDA tensors and a packed
+    conv: unet_conv3x3_plain. src and res are fp32 or bf16; out (allocated
+    in out_dtype when None) is fp32 or bf16 and is neither. Returns out."""
+    if src.device.type != "cuda":
+        raise ValueError(f"unet_conv3x3: launches on CUDA tensors only, not {src.device}")
+    if src.dim() != 4:
+        raise ValueError(f"unet_conv3x3: input {tuple(src.shape)} is not (B, C, T, W)")
+    b, c_in, t, w = src.shape
+    c_out = conv["w"].shape[0]
+    _check_geometry(c_out, w)
+    dev, f32 = src.device, torch.float32
+    _check(src, (b, c_in, t, w), _FLOATS, dev, "x")
+    _check(conv.get("w_taps"), (9, c_out, padded_channels(c_in, c_out)),
+           (torch.bfloat16,), dev, "the packed 3x3 weight")
+    _check(conv["b"], (c_out,), (f32,), dev, "the bias")
     c_res = 0
     if shortcut is not None:
+        if res is None:
+            raise ValueError("unet_conv3x3: a shortcut needs its block input as res")
         c_res = res.shape[1]
-        _check(shortcut.get("w_mat"), (c_out, c_res), f32, dev, "the packed shortcut")
-        _check(shortcut["b"], (c_out,), f32, dev, "the shortcut bias")
+        _check(shortcut.get("w_mat"), (c_out, c_res), (f32,), dev, "the packed shortcut")
+        _check(shortcut["b"], (c_out,), (f32,), dev, "the shortcut bias")
     if res is not None:
-        _check(res, (b, c_res or c_out, t, w), f32, dev, "the residual")
+        _check(res, (b, c_res or c_out, t, w), _FLOATS, dev, "the residual")
     if out is None:
-        out = torch.empty(b, c_out, t, w, device=dev, dtype=f32)
-    _check(out, (b, c_out, t, w), f32, dev, "out")
+        out = torch.empty(b, c_out, t, w, device=dev, dtype=out_dtype)
+    _check(out, (b, c_out, t, w), _FLOATS, dev, "out")
+    if out.data_ptr() in (src.data_ptr(), None if res is None else res.data_ptr()):
+        raise ValueError("unet_conv3x3: out may not be the input or the residual")
     null = ctypes.c_void_p(None)
-    fn = cuda_build.bind("unet_chain", "unet_conv3x3", 7, (ctypes.c_int,) * 7)
+    fn = cuda_build.bind("unet_chain", "unet_conv3x3", 7, (ctypes.c_int,) * 10)
     cuda_build.launch(
-        fn, cuda_build.ptr(x), cuda_build.ptr(conv["w_taps"]), cuda_build.ptr(conv["b"]),
+        fn, cuda_build.ptr(src), cuda_build.ptr(conv["w_taps"]), cuda_build.ptr(conv["b"]),
         null if res is None else cuda_build.ptr(res),
         null if shortcut is None else cuda_build.ptr(shortcut["w_mat"]),
         null if shortcut is None else cuda_build.ptr(shortcut["b"]),
         cuda_build.ptr(out), b, c_in, conv["w_taps"].shape[-1], c_out, c_res, t, w,
+        int(src.dtype == torch.bfloat16),
+        int(res is not None and res.dtype == torch.bfloat16),
+        int(out.dtype == torch.bfloat16),
     )
     convblock_chain.launches += 1
     return out
 
 
 def convblock_chain(x, blocks):
-    """(B, C_in, T, W) -> (B, C_out, T, W) in x's dtype. On a CUDA tensor
-    the blocks must carry their packed weights (pack_unet_weights)."""
+    """(B, C_in, T, W) -> (B, C_out, T, W) in x's dtype. On a CUDA tensor x
+    is fp32 or bf16 and the blocks carry their packed weights
+    (pack_unet_weights): two launches a block, h in bf16 and each block's
+    output in fp32 between them."""
     if x.dim() != 4:
         raise ValueError(f"convblock_chain: input {tuple(x.shape)} is not (B, C, T, W)")
     c = x.shape[1]
@@ -145,11 +217,12 @@ def convblock_chain(x, blocks):
         return convblock_chain_plain(x, blocks)
     if x.device.type != "cuda":
         raise ValueError(f"convblock_chain: unsupported device {x.device}")
-    h = x.float().contiguous()
-    for blk in blocks:
-        y = unet_conv3x3(h, blk["conv1"])
-        h = unet_conv3x3(y, blk["conv2"], res=h, shortcut=blk.get("shortcut"))
-    return h.to(x.dtype)
+    cur = x.contiguous()
+    for i, blk in enumerate(blocks):
+        h = unet_conv3x3(cur, blk["conv1"], out_dtype=torch.bfloat16)
+        cur = unet_conv3x3(h, blk["conv2"], res=cur, shortcut=blk.get("shortcut"),
+                           out_dtype=x.dtype if i == len(blocks) - 1 else torch.float32)
+    return cur
 
 
 convblock_chain.launches = 0

@@ -226,13 +226,22 @@ def test_band_attention_kernel(dev, bh, t, dk, lengths, rel_scale):
                                    rtol=2 ** -8, atol=1e-5)  # one bf16 rounding
 
 
-@pytest.mark.parametrize("c_in,c_out,t,w", [(1, 16, 37, 128), (16, 32, 20, 64),
-                                            (48, 48, 9, 16), (64, 32, 50, 8),
-                                            (256, 256, 33, 4)])
-def test_unet_chain_kernel(dev, c_in, c_out, t, w):
-    rng = np.random.default_rng(c_in + w)
+# every (C_in, C_out, W) family of the main path's U-Net levels, from enc0's
+# first conv to the intermediate and dec0 levels, and C_out = 48
+_UNET_FAMILIES = [(1, 16, 128), (16, 16, 128), (32, 16, 128), (16, 32, 64),
+                  (32, 32, 64), (64, 32, 64), (32, 64, 32), (128, 64, 32),
+                  (64, 128, 16), (256, 128, 16), (128, 256, 8), (512, 256, 8),
+                  (256, 512, 4), (512, 512, 4), (48, 48, 16)]
+# T ragged against every tile (TT = 2, 4, 8, 16 frames): 1, 2, 9, 33, 225;
+# then the cases of earlier versions of this test
+_UNET_CASES = ([(ci, co, t, w) for ci, co, w in _UNET_FAMILIES for t in (1, 2, 9, 33, 225)]
+               + [(1, 16, 37, 128), (16, 32, 20, 64), (48, 48, 9, 16), (64, 32, 50, 8),
+                  (256, 256, 33, 4)])
+
+
+def _unet_blocks(rng, c_in, c_out, dev, n_blocks=2):
     blocks = []
-    for j in range(2):
+    for j in range(n_blocks):
         ci = c_in if j == 0 else c_out
         blk = {name: {"w": _t(rng.standard_normal((c_out, cc, 3, 3)) / np.sqrt(cc * 9), dev),
                       "b": _t(rng.standard_normal(c_out) * 0.05, dev)}
@@ -241,13 +250,77 @@ def test_unet_chain_kernel(dev, c_in, c_out, t, w):
             blk["shortcut"] = {"w": _t(rng.standard_normal((c_out, ci, 1, 1)) / np.sqrt(ci), dev),
                                "b": _t(rng.standard_normal(c_out) * 0.05, dev)}
         blocks.append(blk)
-    x = _t(rng.standard_normal((1, c_in, t, w)), dev)
+    return blocks
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c_in,c_out,t,w", _UNET_CASES)
+def test_unet_chain_kernel(dev, c_in, c_out, t, w, dtype):
+    rng = np.random.default_rng(c_in + w + t)
+    blocks = _unet_blocks(rng, c_in, c_out, dev)
+    x = _t(rng.standard_normal((1, c_in, t, w)), dev).to(dtype)
     packed = uc.pack_unet_weights(blocks)
     got, n = _launched(uc.convblock_chain, lambda: uc.convblock_chain(x, packed))
-    ref = uc.convblock_chain_plain(x, blocks, operand_dtype=torch.bfloat16)
-    assert n == 4 and got.shape == (1, c_out, t, w)
+    ref = uc.convblock_chain_plain(x.float(), blocks, operand_dtype=torch.bfloat16)
+    assert n == 4 and got.shape == (1, c_out, t, w) and got.dtype == dtype
     # bf16 operands both sides; one-ulp re-rounding between the 4 convs
-    assert float((got - ref).abs().max()) <= 1e-2 * float(ref.abs().max())
+    assert float((got.float() - ref).abs().max()) <= 1e-2 * float(ref.abs().max())
+
+
+@pytest.fixture
+def no_tf32():
+    """The plain twin's fp32 1x1 shortcut as a full fp32 cuDNN conv, as the
+    port's entry points set it (resolve_device): TF32 would round its fp32
+    input to 10 bits."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["h", "cur", "last"])
+@pytest.mark.parametrize("c_in,c_out,t,w", [(1, 16, 33, 128), (16, 32, 9, 64),
+                                            (64, 64, 33, 32), (128, 128, 9, 16),
+                                            (128, 256, 33, 8), (512, 512, 225, 4)])
+def test_unet_conv3x3_kernel(dev, no_tf32, c_in, c_out, t, w, kind, dtype):
+    """One launch against unet_conv3x3_plain on the same input: conv1 into
+    bf16 h ("h"), conv2 with the residual or shortcut into the fp32 block
+    output ("cur") or into x's dtype ("last"). Both round the same operands
+    to bf16, so the fp32 results differ by summation order only (1e-4 of
+    max |ref| + 1e-5); a bf16 output adds one rounding of it (2^-8 |ref|)."""
+    rng = np.random.default_rng(c_in * 3 + w + len(kind))
+    blk = uc.pack_unet_weights(_unet_blocks(rng, c_in, c_out, dev, 1))[0]
+    x = _t(rng.standard_normal((1, c_in, t, w)), dev).to(dtype)
+    if kind == "h":
+        args, out_dtype = dict(), torch.bfloat16
+        src, conv = x, blk["conv1"]
+    else:
+        args = dict(res=x, shortcut=blk.get("shortcut"))
+        out_dtype = dtype if kind == "last" else torch.float32
+        src = _t(rng.standard_normal((1, c_out, t, w)), dev).to(torch.bfloat16)
+        conv = blk["conv2"]
+        if "shortcut" not in blk:
+            args["res"] = _t(rng.standard_normal((1, c_out, t, w)), dev).to(dtype)
+    got, n = _launched(uc.convblock_chain,
+                       lambda: uc.unet_conv3x3(src, conv, out_dtype=out_dtype, **args))
+    ref = uc.unet_conv3x3_plain(src, conv, **args)
+    assert n == 1 and got.dtype == out_dtype and got.shape == (1, c_out, t, w)
+    limit = 1e-4 * float(ref.abs().max()) + 1e-5
+    if out_dtype == torch.bfloat16:
+        limit = limit + 2.0 ** -8 * ref.abs()
+    err = (got.float() - ref).abs()
+    assert bool((err <= limit).all()), float(err.max())
+
+
+def test_unet_chain_rejects_shapes_off_the_tile(dev):
+    """C_out off the 16-multiple grid, and W that does not divide 128 (or
+    is below 4), raise before any launch."""
+    rng = np.random.default_rng(4)
+    for c_out, w in ((24, 16), (16, 12), (16, 2), (32, 256)):
+        blk = uc.pack_unet_weights(_unet_blocks(rng, c_out, c_out, dev, 1))
+        with pytest.raises(ValueError, match="multiple of 16|divide 128"):
+            uc.convblock_chain(torch.zeros(1, c_out, 5, w, device=dev), blk)
 
 
 def _viterbi_log_obs(rng, t, n, plateau):

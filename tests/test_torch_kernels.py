@@ -40,6 +40,7 @@ from polgen_rvc_tpu_torch.ops.resblock_group import (
 )
 from polgen_rvc_tpu_torch.ops.unet_chain import (
     convblock_chain, convblock_chain_plain, pack_taps_3x3, pack_unet_weights,
+    padded_channels, unet_conv3x3_plain,
 )
 
 KS, DS = (3, 7, 11), ((1, 3, 5),) * 3
@@ -408,8 +409,8 @@ def test_unet_chain_matches_pallas_and_xla(c_in, c_out, w, fold):
     # nine shifted views of the zero-padded input times the packed taps
     w1 = bt[0]["conv1"]["w"]
     taps = pack_taps_3x3(w1)
-    assert taps.shape == (9, c_out, 32)
-    xp = F.pad(torch.cat([xt, torch.zeros(1, 32 - c_in, t, w)], 1), (1, 1, 1, 1))
+    assert taps.shape == (9, c_out, 16)  # C_out = 16: chunks of 16 channels
+    xp = F.pad(torch.cat([xt, torch.zeros(1, 16 - c_in, t, w)], 1), (1, 1, 1, 1))
     emu = sum(torch.einsum("oc,bctw->botw", taps[j], xp[:, :, j // 3:j // 3 + t,
                                                      j % 3:j % 3 + w])
               for j in range(9))
@@ -458,7 +459,7 @@ def test_pack_unet_weights_layout():
             assert pb[name]["w"] is blk[name]["w"]
             assert torch.equal(pb[name]["w_taps"],
                                pack_taps_3x3(blk[name]["w"].to(torch.bfloat16)))
-            assert pb[name]["w_taps"].shape[-1] == 32
+            assert pb[name]["w_taps"].shape[-1] == 16
     sc = packed[0]["shortcut"]
     assert sc["w_mat"].dtype == torch.float32 and sc["w_mat"].shape == (16, 4)
     assert torch.equal(sc["w_mat"], blocks[0]["shortcut"]["w"][:, :, 0, 0]
@@ -466,6 +467,101 @@ def test_pack_unet_weights_layout():
     assert "shortcut" not in packed[1] and "w_taps" not in blocks[0]["conv1"]
     x = torch.from_numpy(rng.standard_normal((1, 4, 8, 16)).astype(np.float32))
     assert torch.equal(convblock_chain(x, packed), convblock_chain(x, blocks))
+
+
+@pytest.mark.parametrize("c_in,c_out,padded", [
+    (1, 16, 16), (4, 16, 16), (16, 16, 16), (32, 16, 32), (48, 48, 48),
+    (16, 32, 16), (64, 32, 64), (1, 64, 32), (48, 64, 64), (512, 256, 512),
+    (256, 512, 256),
+])
+def test_unet_taps_padding(c_in, c_out, padded):
+    """Input channels are padded to the kernel's chunk: 16 where C_out <= 32
+    or is no multiple of 32 (C_in = 1 takes 16, not 32), 32 above; the
+    padding is zeros and the taps are the weight's (dt, dw) slices."""
+    w = torch.randn(c_out, c_in, 3, 3, generator=torch.Generator().manual_seed(c_in))
+    taps = pack_taps_3x3(w)
+    assert padded_channels(c_in, c_out) == padded
+    assert taps.shape == (9, c_out, padded) and taps.is_contiguous()
+    assert not taps[:, :, c_in:].any()
+    for j in range(9):
+        assert torch.equal(taps[j, :, :c_in], w[:, :, j // 3, j % 3])
+
+
+def _chain_by_launches(x, blocks):
+    """The chain as the CUDA wrapper launches it: per block, conv1 into a
+    bf16 h, conv2 with the block input as residual or shortcut input into
+    an fp32 block output, x's dtype for the last."""
+    cur = x
+    for i, blk in enumerate(blocks):
+        h = unet_conv3x3_plain(cur, blk["conv1"], out_dtype=torch.bfloat16)
+        cur = unet_conv3x3_plain(h, blk["conv2"], res=cur, shortcut=blk.get("shortcut"),
+                                 out_dtype=x.dtype if i == len(blocks) - 1 else torch.float32)
+    return cur
+
+
+@pytest.mark.parametrize("c_in,c_out,t,w", [
+    (1, 16, 1, 128),   # C_in = 1, one frame: every frame touches both T edges
+    (1, 16, 3, 4),
+    (8, 16, 2, 128),   # channel-changing first block: 1x1 shortcut
+    (16, 16, 3, 128),
+    (16, 32, 2, 4),
+    (32, 32, 1, 4),
+    (24, 48, 3, 8),
+])
+def test_unet_conv3x3_twin_composes_to_the_chain(c_in, c_out, t, w):
+    """Eight one-launch twins (four blocks), in the wrapper's order and
+    dtypes, give convblock_chain_plain at bf16 operands bit for bit, for
+    fp32 and bf16 x; T = 1-3 puts every frame at a T edge."""
+    rng = np.random.default_rng(c_in * 31 + t * 7 + w)
+    blocks = params_to_torch(_unet_blocks(rng, c_in, c_out, 4))
+    x = torch.from_numpy((rng.standard_normal((1, c_in, t, w)) * 0.5).astype(np.float32))
+    for xin in (x, x.to(torch.bfloat16)):
+        ref = convblock_chain_plain(xin, blocks, operand_dtype=torch.bfloat16)
+        got = _chain_by_launches(xin, blocks)
+        assert got.dtype == xin.dtype and torch.equal(got, ref)
+
+
+def test_unet_conv3x3_twin_epilogues():
+    """One launch's three epilogues: bias and ReLU alone, + the residual at
+    full precision, + the 1x1 shortcut (bf16-rounded weight, fp32 input),
+    each rounded once to the output dtype."""
+    rng = np.random.default_rng(12)
+    blk = params_to_torch(_unet_blocks(rng, 8, 16, 1))[0]
+    c1, c2, sc = blk["conv1"], blk["conv2"], blk["shortcut"]
+    x = torch.from_numpy(rng.standard_normal((1, 8, 5, 16)).astype(np.float32))
+    r = torch.from_numpy(rng.standard_normal((1, 16, 5, 16)).astype(np.float32))
+
+    def rnd(v):
+        return v.to(torch.bfloat16).float()
+
+    y = F.relu(F.conv2d(rnd(x), rnd(c1["w"]), c1["b"], padding=1))
+    assert torch.equal(unet_conv3x3_plain(x, c1), y)
+    assert torch.equal(unet_conv3x3_plain(x, c1, out_dtype=torch.bfloat16),
+                       y.to(torch.bfloat16))
+    y2 = F.relu(F.conv2d(rnd(y), rnd(c2["w"]), c2["b"], padding=1))
+    assert torch.equal(unet_conv3x3_plain(y, c2, res=r), y2 + r)
+    assert torch.equal(unet_conv3x3_plain(y, c2, res=x, shortcut=sc),
+                       y2 + F.conv2d(x, rnd(sc["w"]), sc["b"]))
+
+
+def test_unet_chain_bf16_input_matches_pallas():
+    """x in bf16, as the U-Net hands it over on the card: JAX's Pallas
+    kernel (interpret mode, bf16 operands) and the port's launch-by-launch
+    twin both return bf16. Tolerance: the fp32 cases' 1e-2 absolute plus
+    one bf16 rounding of the output (2^-8 |ref|)."""
+    rng = np.random.default_rng(21)
+    c_in, c_out, t, w = 4, 16, 24, 16
+    blocks = _unet_blocks(rng, c_in, c_out, 2)
+    x = (rng.standard_normal((1, c_in, t, w)) * 0.5).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    ref = fused_convblock_chain_folded(jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16),
+                                       blocks, fold=8, time_tile=16,
+                                       compute_dtype=jnp.bfloat16, interpret=True)
+    got = _chain_by_launches(xb, params_to_torch(blocks))
+    assert ref.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    ref32 = np.asarray(ref.astype(jnp.float32))
+    err = np.abs(got.float().numpy() - ref32)
+    assert np.all(err <= 1e-2 + 2.0 ** -8 * np.abs(ref32)), float(err.max())
 
 
 def _bad_resblock():
