@@ -37,8 +37,8 @@ printing one JSON line (any failure raises; exit code != 0):
                conv kernel against its plain twin at fp32 summation order
                (the resblock group: one conv pair; the U-Net chain: one
                conv into bf16 h, into the fp32 block output and into x's
-               dtype; conv-transpose, the resblock group and the U-Net
-               chain: the fp32 route beside the bf16 one);
+               dtype; conv-transpose and the resblock group: the fp32
+               route beside the bf16 one);
                timed beside the plain twin, a single PyTorch call where one
                computes the same function, and the bound (bytes over
                3.35 TB/s or operations over the peak rate of the operands'
@@ -510,16 +510,8 @@ def check_kernels(calls: dict) -> dict:
         x, blocks = e["args"]
         b, c, t, w = x.shape
         c_out = blocks[-1]["conv2"]["w"].shape[0]
-        # bf16 operands both sides; one-ulp re-rounding between 8 convs. The
-        # fp32 route first, then the route the U-Net takes (x's dtype, bf16
-        # in a bf16 engine; its one rounding of the output is inside)
-        x32 = x.float().contiguous()
-        ref = uc.convblock_chain_plain(x32, blocks, operand_dtype=bf16)
-        got = uc.convblock_chain(x32, blocks)
-        fp32_err, fp32_tol = float((got - ref).abs().max()), 1e-2 * float(ref.abs().max())
-        if not fp32_err <= fp32_tol:
-            raise AssertionError(f"unet_chain fp32 route {list(x.shape)}: "
-                                 f"{fp32_err} > {fp32_tol}")
+        # bf16 operands both sides; one-ulp re-rounding between 8 convs (and
+        # for a bf16 x its one rounding of the output, inside the 1%)
         ref = uc.convblock_chain_plain(x, blocks, operand_dtype=bf16).float()
         got = uc.convblock_chain(x, blocks)
         if got.dtype != x.dtype:
@@ -540,8 +532,7 @@ def check_kernels(calls: dict) -> dict:
         if h_got.dtype != bf16 or not bool(((h_got.float() - h_ref).abs() <= h_lim).all()):
             raise AssertionError("unet_chain conv1 -> bf16 h: error above fp32 order "
                                  "+ one bf16 rounding")
-        one = {"fp32_route": {"max_abs_err": fp32_err, "tolerance": fp32_tol},
-               "conv1_bf16_h": {"max_abs_err": float((h_got.float() - h_ref).abs().max()),
+        one = {"conv1_bf16_h": {"max_abs_err": float((h_got.float() - h_ref).abs().max()),
                                 **abs_stats(h_ref)},
                "conv2_fp32_cur": single(uc.unet_conv3x3(h_got, c2, res=xc, shortcut=sc),
                                         uc.unet_conv3x3_plain(h_got, c2, res=xc,
