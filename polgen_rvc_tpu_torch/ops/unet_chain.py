@@ -147,11 +147,10 @@ def unet_conv3x3_tile(c_out, w):
     return dict(zip(("bm", "n", "tt", "kc"), out))
 
 
-def unet_conv3x3(src, conv, *, res=None, shortcut=None, out_dtype=torch.float32,
-                 out=None):
+def unet_conv3x3(src, conv, *, res=None, shortcut=None, out_dtype=torch.float32):
     """One launch of the kernel on (B, C_in, T, W) CUDA tensors and a packed
-    conv: unet_conv3x3_plain. src and res are fp32 or bf16; out (allocated
-    in out_dtype when None) is fp32 or bf16 and is neither. Returns out."""
+    conv: unet_conv3x3_plain. src and res are fp32 or bf16; returns a new
+    tensor in out_dtype (fp32 or bf16)."""
     if src.device.type != "cuda":
         raise ValueError(f"unet_conv3x3: launches on CUDA tensors only, not {src.device}")
     if src.dim() != 4:
@@ -173,11 +172,9 @@ def unet_conv3x3(src, conv, *, res=None, shortcut=None, out_dtype=torch.float32,
         _check(shortcut["b"], (c_out,), (f32,), dev, "the shortcut bias")
     if res is not None:
         _check(res, (b, c_res or c_out, t, w), _FLOATS, dev, "the residual")
-    if out is None:
-        out = torch.empty(b, c_out, t, w, device=dev, dtype=out_dtype)
-    _check(out, (b, c_out, t, w), _FLOATS, dev, "out")
-    if out.data_ptr() in (src.data_ptr(), None if res is None else res.data_ptr()):
-        raise ValueError("unet_conv3x3: out may not be the input or the residual")
+    if out_dtype not in _FLOATS:
+        raise ValueError(f"unet_conv3x3: out_dtype {out_dtype} is not float32 or bfloat16")
+    out = torch.empty(b, c_out, t, w, device=dev, dtype=out_dtype)
     null = ctypes.c_void_p(None)
     fn = cuda_build.bind("unet_chain", "unet_conv3x3", 7, (ctypes.c_int,) * 10)
     cuda_build.launch(
