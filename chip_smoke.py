@@ -602,12 +602,18 @@ def check_kernels(calls: dict) -> dict:
         # over the n - 1 steps this input runs; log_obs rows < n read once,
         # the int32 path written once
         steps = max(min(n, t_len) - 1, 0)
+        # the two launches of one call timed alone: the forward recursion,
+        # then the backpointer walk on the forward's output
+        back, path = vt._forward(log_obs, n)
+        split = {"forward_ms": cuda_ms(lambda: vt._forward(log_obs, n)),
+                 "walk_ms": cuda_ms(lambda: vt._walk(back, path, n))}
+        split["forward_us_per_step"] = 1e3 * split["forward_ms"] / max(steps, 1)
         add("viterbi", float((got - ref).abs().max()), 0.0, ref,
             cuda_ms(lambda: vt.viterbi_path(log_obs, n)),
             cuda_ms(lambda: vt.viterbi_path_plain(log_obs, n), reps=1),
             None, 50.0 * steps * bins, min(n, t_len) * bins * 4 + t_len * 4,
             torch.float32, e["count"], [t_len, bins, n],
-            {"path_mismatches": mismatches})
+            {"path_mismatches": mismatches, **split})
         # random CREPE weights give a path that barely moves: the same shape
         # again on a random-walk track with all-tie frames (not a launch of
         # the path, so it adds to no per-convert total)

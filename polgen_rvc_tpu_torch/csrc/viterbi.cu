@@ -1,4 +1,5 @@
-// CREPE's banded Viterbi decode over 360 pitch bins, in one thread block:
+// CREPE's banded Viterbi decode over 360 pitch bins, in two launches of
+// one thread block each:
 //
 //   dp[0]  = log_init + log_obs[0]                        (not renormalized)
 //   best_j = max over |d| <= 11 of dp[j+d] + band[j][d]   (strict >: lowest d)
@@ -8,30 +9,49 @@
 //   path   = first-index argmax of the last dp, then the backpointer walk;
 //            rows t >= n pass through, so path[t] = that argmax for t >= n-1
 //
-// Replaces polgen_rvc_tpu/ops/pallas_viterbi.py:viterbi_path_pallas (its
-// _fwd_kernel and _bwd_kernel). The TPU kernel streamed blocks of time steps
-// over a sequential grid and carried the dp row in VMEM from one grid step
-// to the next. The recursion is serial in t and a convert decodes one
-// sequence, so here the grid becomes a loop inside a single block.
+// Replaces polgen_rvc_tpu/ops/pallas_viterbi.py:viterbi_path_pallas: its
+// _fwd_kernel becomes viterbi_forward_kernel, its _bwd_kernel
+// viterbi_walk_kernel. The TPU kernel streamed blocks of time steps over a
+// sequential grid and carried the dp row in VMEM from one grid step to the
+// next. The recursion is serial in t and a convert decodes one sequence,
+// so here the grid becomes a loop inside a single block.
 //
 // Bound: bytes (log_obs read once and the int32 path written once: ~3.3 us
 // at T = 7,751 at 3.35 TB/s); the arithmetic is ~2 x 23 x 360 fp32
 // operations a step. Neither sets the time: every step waits for the block
-// max of the step before, so the kernel runs at one step's latency after
-// another. Design: one thread per bin (384 threads, 24 idle), each holding
-// its 23 band values in registers; dp double-buffered in shared memory with
-// -inf borders, so the 23 candidates are branch-free reads; the next row of
-// log_obs prefetched into a register a step ahead; the block max with its
-// first-index argmax by redux.sync + ballot in each warp and once more over
-// the 12 warp results (two barriers a step). The max that renormalizes
-// dp[t] is also the teleport source of step t + 1: after dp - max(dp) the
-// maximum is exactly +0 and lies exactly where dp == max(dp) (x - y == 0
-// iff x == y in IEEE arithmetic with subnormals kept), so its first index is
-// the argmax the next step needs, bit for bit. Backpointers go to an int16
-// scratch (5.6 MB at T = 7,751, which stays in L2) and thread 0 walks them
-// back after a barrier. Only fp32 adds, compares and subtracts, in the
-// plain twin's order: built without --use_fast_math, the paths are the
-// twin's, bit for bit.
+// max of the step before, so the forward loop runs at one step's latency
+// and instruction issue after another, and the walk at one dependent load
+// a step.
+//
+// Forward design. Four warps, one to a scheduler, each thread three
+// neighbouring bins with their 3 x 23 band values in registers. Each step
+// stores the raw v = best + o (not renormalized) into a double-buffered
+// shared row with -inf borders, and each warp its max and that max's first
+// bin; one barrier a step. After it, every thread reduces the four warp
+// maxima itself (M, and m = the first bin holding M) and forms its
+// candidates as (v[j+d] - M) + band[j][d]: the twin's dp = dp_new - max,
+// then dp_pad + band, in the same order and to the same bits. Step 1
+// subtracts +0 instead (dp[0] is not renormalized; x - (+0) == x exactly).
+// The teleport value is (M - sub) + log_eps: at t >= 2 the renormalized
+// maximum is exactly +0 (x - y == 0 iff x == y in IEEE arithmetic with
+// subnormals kept), so no dependent load of dp[m] exists; m is needed only
+// for the tie rule and the backpointer. A thread's 25 window values are
+// renormalized once for its three bins. Each bin's best is an fmaxf tree
+// (depth 5, not a 23-deep compare chain); its source is then the lowest d
+// whose candidate equals it, which keeps the strict-> lowest-d rule and
+// stays off the path to the next step's barrier. Observations are loaded
+// two steps ahead into registers and pulled into L2 32 steps ahead.
+// Backpointers go to an int16 scratch (5.6 MB at T = 7,751, in L2).
+//
+// Walk design, as the TPU's _bwd_kernel walks from VMEM: the rows of back
+// do not depend on the bin being chased, so the block streams 64-row
+// chunks of them into shared memory from the end with cp.async (two
+// chunks in flight, 16-byte coalesced copies), and one thread chases the
+// path through a chunk at shared-memory latency; the chunk's path entries
+// leave through shared memory as one coalesced store.
+//
+// Only fp32 adds, compares, subtracts and max, in the plain twin's order:
+// built without --use_fast_math, the paths are the twin's, bit for bit.
 #include <math.h>
 
 #include "common.cuh"
@@ -41,10 +61,17 @@ namespace {
 constexpr int BINS = 360;
 constexpr int HALF = 11;                 // width 12: sources j - 11 .. j + 11
 constexpr int BW = 2 * HALF + 1;
-constexpr int THREADS = 384;
+constexpr int K = 3;                     // bins a thread
+constexpr int THREADS = 128;             // 120 busy
 constexpr int WARPS = THREADS / 32;
-constexpr int ROW = THREADS + 2 * HALF;  // a dp row with -inf borders
+constexpr int WIN = K + 2 * HALF;        // a thread's window of sources
+constexpr int ROW = THREADS * K + 2 * HALF;  // a raw row with -inf borders
+constexpr int L2_AHEAD = 32;             // rows pulled into L2 ahead
 constexpr unsigned FULL = 0xffffffffu;
+
+constexpr int WALK_THREADS = 256;
+constexpr int WALK_ROWS = 64;            // backpointer rows a chunk
+constexpr int ROW_VECS = BINS * 2 / 16;  // 16-byte vectors an int16 row
 
 // Order-preserving map of a float onto an unsigned key (no NaNs here).
 __device__ __forceinline__ unsigned key_of(float v) {
@@ -56,101 +83,213 @@ __device__ __forceinline__ float value_of(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-// The block's max of v and the lowest thread index holding it (thread j
-// holds bin j), in every thread. One barrier; the caller keeps s_val and
-// s_idx untouched until its next barrier.
-__device__ __forceinline__ void block_argmax(float v, float* s_val, int* s_idx,
-                                             float& max_v, int& max_i) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float wv = value_of(__reduce_max_sync(FULL, key_of(v)));
-  const unsigned hit = __ballot_sync(FULL, v == wv);
-  if (lane == 0) {
-    s_val[warp] = wv;
-    s_idx[warp] = warp * 32 + __ffs(hit) - 1;
-  }
-  __syncthreads();
-  const float bv = lane < WARPS ? s_val[lane] : -INFINITY;
-  max_v = value_of(__reduce_max_sync(FULL, key_of(bv)));
-  const unsigned bhit = __ballot_sync(FULL, lane < WARPS && bv == max_v);
-  max_i = s_idx[__ffs(bhit) - 1];
+// The warp's max of the threads' maxima tv and the lowest bin holding it
+// (ti: the thread's first bin holding tv; lanes hold increasing bins).
+__device__ __forceinline__ void warp_argmax(float tv, int ti, float& wv, int& wi) {
+  wv = value_of(__reduce_max_sync(FULL, key_of(tv)));
+  wi = (int)__reduce_min_sync(FULL, tv == wv ? (unsigned)ti : 0xffffffffu);
+}
+
+// The block's max M of the raw row and its first bin m, from the warps'
+// slots (warp w holds bins 96w .. 96w + 95, so the lowest warp wins a tie).
+__device__ __forceinline__ void block_argmax(const float* s_wv, const int* s_wi,
+                                             float& M, int& m) {
+  const float4 v = *reinterpret_cast<const float4*>(s_wv);
+  const int4 i = *reinterpret_cast<const int4*>(s_wi);
+  M = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
+  m = v.x == M ? i.x : v.y == M ? i.y : v.z == M ? i.z : i.w;
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
-viterbi_kernel(const float* __restrict__ log_obs, const float* __restrict__ band,
-               short* back, int* path, int T, int n, float log_eps,
-               float log_init) {
-  __shared__ float s_dp[2][ROW];
-  __shared__ float s_val[WARPS];
-  __shared__ int s_idx[WARPS];
-  const int j = threadIdx.x;
-  const bool active = j < BINS;
-  for (int i = j; i < 2 * ROW; i += THREADS) (&s_dp[0][0])[i] = -INFINITY;
-  float bnd[BW];
+viterbi_forward_kernel(const float* __restrict__ log_obs,
+                       const float* __restrict__ band, short* __restrict__ back,
+                       int* __restrict__ path, int T, int n, float log_eps,
+                       float log_init) {
+  static_assert(WARPS == 4, "block_argmax reads four warp slots");
+  __shared__ float s_raw[2][ROW];
+  __shared__ __align__(16) float s_wv[2][WARPS];
+  __shared__ __align__(16) int s_wi[2][WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j0 = tid * K;  // this thread's first bin; its window starts at
+                           // raw index j0 (bin j0 - HALF)
+  for (int i = tid; i < 2 * ROW; i += THREADS) (&s_raw[0][0])[i] = -INFINITY;
+  float bnd[K][BW];
 #pragma unroll
-  for (int d = 0; d < BW; ++d) bnd[d] = active ? band[j * BW + d] : -INFINITY;
+  for (int b = 0; b < K; ++b)
+#pragma unroll
+    for (int d = 0; d < BW; ++d)
+      bnd[b][d] = j0 + b < BINS ? band[(j0 + b) * BW + d] : -INFINITY;
   __syncthreads();
 
-  float v = active ? log_init + log_obs[j] : -INFINITY;
-  if (active) s_dp[0][HALF + j] = v;
-  float max_v;
-  int m;
-  block_argmax(v, s_val, s_idx, max_v, m);
-  __syncthreads();
-
-  float obs_next = (active && n > 1) ? log_obs[BINS + j] : 0.0f;
-  int cur = 0;
-  for (int t = 1; t < n; ++t) {
-    const float o = obs_next;
-    if (active && t + 1 < n) obs_next = log_obs[(size_t)(t + 1) * BINS + j];
-    const float* row = &s_dp[cur][j];  // row[d] = dp[j + d - HALF]
-    const float teleport = s_dp[cur][HALF + m] + log_eps;
-    float best = -INFINITY;
-    int bi = 0;
+  // dp[0], not renormalized; the loop's first step subtracts +0
+  float v[K], o[K], o_next[K];
 #pragma unroll
-    for (int d = 0; d < BW; ++d) {
-      const float c = row[d] + bnd[d];
-      if (c > best) {
-        best = c;
-        bi = j + d - HALF;
+  for (int b = 0; b < K; ++b) {
+    const int j = j0 + b;
+    v[b] = j < BINS ? log_init + log_obs[j] : -INFINITY;
+    o[b] = (j < BINS && n > 1) ? log_obs[BINS + j] : 0.f;
+    o_next[b] = (j < BINS && n > 2) ? log_obs[2 * BINS + j] : 0.f;
+  }
+  auto publish = [&](int buf) {
+    float tv = v[0];
+    int ti = j0;
+#pragma unroll
+    for (int b = 0; b < K; ++b) {
+      s_raw[buf][HALF + j0 + b] = v[b];
+      if (v[b] > tv) {
+        tv = v[b];
+        ti = j0 + b;
       }
     }
-    if (teleport > best || (teleport == best && m < bi)) {
-      best = teleport;
-      bi = m;
+    float wv;
+    int wi;
+    warp_argmax(tv, ti, wv, wi);
+    if (lane == 0) {
+      s_wv[buf][warp] = wv;
+      s_wi[buf][warp] = wi;
     }
-    v = active ? best + o : -INFINITY;
-    block_argmax(v, s_val, s_idx, max_v, m);
-    if (active) {
-      s_dp[cur ^ 1][HALF + j] = v - max_v;
-      back[(size_t)t * BINS + j] = (short)bi;
+  };
+  publish(0);
+
+  int cur = 0;
+  float sub = 0.f;  // +0 at step 1, then the previous row's max
+  for (int t = 1; t < n; ++t) {
+    __syncthreads();
+    if (tid * 32 < BINS && t + L2_AHEAD < n)
+      prefetch_l2(log_obs + (size_t)(t + L2_AHEAD) * BINS + tid * 32);
+    float o_far[K];
+#pragma unroll
+    for (int b = 0; b < K; ++b)
+      o_far[b] = (j0 + b < BINS && t + 2 < n)
+                     ? log_obs[(size_t)(t + 2) * BINS + j0 + b] : 0.f;
+    float M;
+    int m;
+    block_argmax(s_wv[cur], s_wi[cur], M, m);
+    if (t > 1) sub = M;
+    const float teleport = (M - sub) + log_eps;
+    float dp[WIN];
+#pragma unroll
+    for (int w = 0; w < WIN; ++w) dp[w] = s_raw[cur][j0 + w] - sub;
+#pragma unroll
+    for (int b = 0; b < K; ++b) {
+      float c[BW];
+#pragma unroll
+      for (int d = 0; d < BW; ++d) c[d] = dp[b + d] + bnd[b][d];
+      // fmaxf tree over the 23 candidates
+      float r[12];
+#pragma unroll
+      for (int d = 0; d < 11; ++d) r[d] = fmaxf(c[2 * d], c[2 * d + 1]);
+      r[11] = c[22];
+#pragma unroll
+      for (int d = 0; d < 6; ++d) r[d] = fmaxf(r[2 * d], r[2 * d + 1]);
+      const float best = fmaxf(fmaxf(fmaxf(r[0], r[1]), fmaxf(r[2], r[3])),
+                               fmaxf(r[4], r[5]));
+      int bd = BW - 1;
+#pragma unroll
+      for (int d = BW - 2; d >= 0; --d) bd = c[d] == best ? d : bd;
+      const int bi = j0 + b + bd - HALF;
+      const bool take = teleport > best || (teleport == best && m < bi);
+      v[b] = j0 + b < BINS ? fmaxf(best, teleport) + o[b] : -INFINITY;
+      if (j0 + b < BINS) back[(size_t)t * BINS + j0 + b] = (short)(take ? m : bi);
+      o[b] = o_next[b];
+      o_next[b] = o_far[b];
     }
     cur ^= 1;
-    __syncthreads();
+    publish(cur);
   }
 
-  const int end = m;
-  for (int t = n - 1 + j; t < T; t += THREADS) path[t] = end;
-  __syncthreads();  // the backpointer stores, visible to thread 0
-  if (j == 0) {
-    int b = end;
-    for (int t = n - 1; t >= 1; --t) {
-      b = back[(size_t)t * BINS + b];
-      path[t - 1] = b;
+  __syncthreads();
+  float M;
+  int end;
+  block_argmax(s_wv[cur], s_wi[cur], M, end);
+  for (int t = n - 1 + tid; t < T; t += THREADS) path[t] = end;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// path[n-1] holds the end bin (written by the forward kernel); walks rows
+// n-1 .. 1 of back: path[t-1] = back[t][path[t]].
+__global__ void __launch_bounds__(WALK_THREADS, 1)
+viterbi_walk_kernel(const short* __restrict__ back, int* __restrict__ path, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  short* s_back = reinterpret_cast<short*>(smem_raw);  // [2][WALK_ROWS][BINS]
+  __shared__ int s_path[WALK_ROWS];
+  const int tid = threadIdx.x;
+  const int chunks = (n - 1 + WALK_ROWS - 1) / WALK_ROWS;
+  // chunk c holds rows hi - r (r = 0 .. rows - 1), hi = n - 1 - c * WALK_ROWS
+  auto load = [&](int c) {
+    if (c < chunks) {
+      const int hi = n - 1 - c * WALK_ROWS;
+      const int rows = min(WALK_ROWS, hi);
+      short* dst = s_back + (c & 1) * WALK_ROWS * BINS;
+      for (int idx = tid; idx < rows * ROW_VECS; idx += WALK_THREADS) {
+        const int r = idx / ROW_VECS, u = idx - r * ROW_VECS;
+        cp_async16(dst + r * BINS + u * 8, back + (size_t)(hi - r) * BINS + u * 8);
+      }
     }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+  load(0);
+  load(1);
+  int b = path[n - 1];
+  for (int c = 0; c < chunks; ++c) {
+    const int hi = n - 1 - c * WALK_ROWS;
+    const int rows = min(WALK_ROWS, hi);
+    cp_async_wait_one();
+    __syncthreads();
+    if (tid == 0) {
+      const short* rowp = s_back + (c & 1) * WALK_ROWS * BINS;
+      for (int r = 0; r < rows; ++r, rowp += BINS) {
+        b = rowp[b];
+        s_path[r] = b;
+      }
+    }
+    __syncthreads();
+    if (tid < rows) path[hi - tid - 1] = s_path[tid];
+    load(c + 2);
   }
 }
 
 }  // namespace
 
-// log_obs (T, 360) fp32; band (360, 23) fp32; back (n, 360) int16 scratch;
-// path (T,) int32. 1 <= n <= T.
-POLGEN_API int viterbi_path(const void* log_obs, const void* band, void* back,
-                            void* path, int T, int n, float log_eps,
-                            float log_init, void* stream) {
+// log_obs (T, 360) fp32; band (360, 23) fp32; back (n, 360) int16 scratch
+// (row 0 unused); path (T,) int32. 1 <= n <= T. Writes back's rows
+// 1 .. n-1 and path[n-1 .. T).
+POLGEN_API int viterbi_forward(const void* log_obs, const void* band, void* back,
+                               void* path, int T, int n, float log_eps,
+                               float log_init, void* stream) {
   if (T < 1 || n < 1 || n > T) return (int)cudaErrorInvalidValue;
-  viterbi_kernel<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  viterbi_forward_kernel<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(log_obs), static_cast<const float*>(band),
       static_cast<short*>(back), static_cast<int*>(path), T, n, log_eps,
       log_init);
+  return (int)cudaGetLastError();
+}
+
+// back and path as viterbi_forward left them; writes path[0 .. n-1).
+POLGEN_API int viterbi_walk(const void* back, void* path, int n, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  if (n == 1) return (int)cudaSuccess;
+  const int smem = 2 * WALK_ROWS * BINS * (int)sizeof(short);
+  cudaError_t err = cudaFuncSetAttribute(
+      viterbi_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  viterbi_walk_kernel<<<1, WALK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const short*>(back), static_cast<int*>(path), n);
   return (int)cudaGetLastError();
 }

@@ -15,9 +15,11 @@ add, a compare or a subtract, so the CUDA kernel and the plain twin give
 the same bits, and both give the paths of the JAX package's lax.scan.
 
 Replaces polgen_rvc_tpu/ops/pallas_viterbi.py:viterbi_path_pallas. On a
-CUDA tensor ``viterbi_path`` launches the sm_90a kernel of csrc/viterbi.cu
-(one thread block for the whole serial recursion and the backpointer walk);
-on a CPU tensor it runs ``viterbi_path_plain``.
+CUDA tensor ``viterbi_path`` launches the two sm_90a kernels of
+csrc/viterbi.cu, as the JAX package splits its Pallas kernels: the forward
+recursion in one thread block (``_forward``), then the backpointer walk
+from shared memory (``_walk``); one call counts one launch. On a CPU
+tensor it runs ``viterbi_path_plain``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ PITCH_BINS = 360
 WIDTH = 12
 LOG_EPS = np.float32(np.log(1e-20))
 LOG_INIT = np.float32(np.log(1.0 / PITCH_BINS))
+WALK_ROWS = 64  # backpointer rows a chunk of the walk kernel (csrc/viterbi.cu)
 
 
 def transition_matrix(width: int = WIDTH) -> np.ndarray:
@@ -123,18 +126,32 @@ def viterbi_path(log_obs, n: int, width: int = WIDTH):
     if log_obs.device.type != "cuda":
         raise ValueError(f"viterbi_path: unsupported device {log_obs.device}")
     t_len = log_obs.shape[0]
-    path = torch.empty(t_len, dtype=torch.int32, device=log_obs.device)
     if t_len == 0:
-        return path
+        return torch.empty(0, dtype=torch.int32, device=log_obs.device)
     n = max(1, min(int(n), t_len))
-    # backpointer rows 1..n-1 (row 0 unused), read back by the same launch
+    back, path = _forward(log_obs, n)
+    _walk(back, path, n)
+    viterbi_path.launches += 1
+    return path
+
+
+def _forward(log_obs, n: int):
+    """The forward kernel: (back, path) with back's rows 1 .. n-1 (row 0
+    unused) and path[n-1:] set to the last row's argmax."""
+    path = torch.empty(log_obs.shape[0], dtype=torch.int32, device=log_obs.device)
     back = torch.empty((n, PITCH_BINS), dtype=torch.int16, device=log_obs.device)
-    fn = cuda_build.bind("viterbi", "viterbi_path", 4,
+    fn = cuda_build.bind("viterbi", "viterbi_forward", 4,
                          (ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float))
     cuda_build.launch(fn, *(cuda_build.ptr(a) for a in
                             (log_obs, _band_on(log_obs.device), back, path)),
-                      t_len, n, float(LOG_EPS), float(LOG_INIT))
-    viterbi_path.launches += 1
+                      log_obs.shape[0], n, float(LOG_EPS), float(LOG_INIT))
+    return back, path
+
+
+def _walk(back, path, n: int):
+    """The walk kernel: fills path[:n-1] from back and path[n-1]."""
+    fn = cuda_build.bind("viterbi", "viterbi_walk", 2, (ctypes.c_int,))
+    cuda_build.launch(fn, cuda_build.ptr(back), cuda_build.ptr(path), n)
     return path
 
 

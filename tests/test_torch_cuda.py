@@ -358,9 +358,17 @@ def _viterbi_tie(m_bin, plateau):
     return lo
 
 
+# the walk kernel takes n - 1 backpointer rows in chunks of vt.WALK_ROWS:
+# these n give it chunk - 2 .. chunk + 1 rows and 2 chunk (+ 1)
+_WALK_NS = ([vt.WALK_ROWS + d for d in (-1, 0, 1, 2)]
+            + [2 * vt.WALK_ROWS + d for d in (1, 2)])
+
+
 @pytest.mark.parametrize("case", ["240/240", "240/224/plateau", "130/111",
                                   "64/64/plateau", "1/1", "2/1", "tie/0/200",
-                                  "tie/359/100", "20000/19001"])
+                                  "tie/359/100", "20000/19001", "7751/7751",
+                                  "7751/7700/plateau"]
+                         + [f"{2 * vt.WALK_ROWS + 40}/{n}" for n in _WALK_NS])
 def test_viterbi_kernel(dev, case):
     rng = np.random.default_rng(sum(map(ord, case)))
     if case.startswith("tie"):
