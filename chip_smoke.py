@@ -602,11 +602,14 @@ def check_kernels(calls: dict) -> dict:
         # over the n - 1 steps this input runs; log_obs rows < n read once,
         # the int32 path written once
         steps = max(min(n, t_len) - 1, 0)
-        # the two launches of one call timed alone: the forward recursion,
-        # then the backpointer walk on the forward's output
-        back, path = vt._forward(log_obs, n)
+        # the three launches of one call timed alone, each on its
+        # predecessor's output: the forward recursion, the backpointers,
+        # the walk
+        rows = vt._forward(log_obs, n)
+        back, maps = vt._backpointers(rows, n)
         split = {"forward_ms": cuda_ms(lambda: vt._forward(log_obs, n)),
-                 "walk_ms": cuda_ms(lambda: vt._walk(back, path, n))}
+                 "backpointers_ms": cuda_ms(lambda: vt._backpointers(rows, n)),
+                 "walk_ms": cuda_ms(lambda: vt._walk(rows, back, maps, t_len, n))}
         split["forward_us_per_step"] = 1e3 * split["forward_ms"] / max(steps, 1)
         add("viterbi", float((got - ref).abs().max()), 0.0, ref,
             cuda_ms(lambda: vt.viterbi_path(log_obs, n)),

@@ -15,11 +15,11 @@ add, a compare or a subtract, so the CUDA kernel and the plain twin give
 the same bits, and both give the paths of the JAX package's lax.scan.
 
 Replaces polgen_rvc_tpu/ops/pallas_viterbi.py:viterbi_path_pallas. On a
-CUDA tensor ``viterbi_path`` launches the two sm_90a kernels of
-csrc/viterbi.cu, as the JAX package splits its Pallas kernels: the forward
-recursion in one thread block (``_forward``), then the backpointer walk
-from shared memory (``_walk``); one call counts one launch. On a CPU
-tensor it runs ``viterbi_path_plain``.
+CUDA tensor ``viterbi_path`` launches the three sm_90a kernels of
+csrc/viterbi.cu: the serial forward recursion in one thread block
+(``_forward``), the backpointers of every step and the maps of 16-row
+spans in parallel (``_backpointers``), and the walk over the maps, then
+the spans (``_walk``); one call counts one launch. On a CPU tensor it runs ``viterbi_path_plain``.
 """
 
 from __future__ import annotations
@@ -36,7 +36,9 @@ PITCH_BINS = 360
 WIDTH = 12
 LOG_EPS = np.float32(np.log(1e-20))
 LOG_INIT = np.float32(np.log(1.0 / PITCH_BINS))
-WALK_ROWS = 64  # backpointer rows a chunk of the walk kernel (csrc/viterbi.cu)
+# csrc/viterbi.cu: backpointer rows a span (one map each), span maps a
+# chunk of the walk
+SPAN, WALK_MAPS = 16, 64
 
 
 def transition_matrix(width: int = WIDTH) -> np.ndarray:
@@ -129,29 +131,47 @@ def viterbi_path(log_obs, n: int, width: int = WIDTH):
     if t_len == 0:
         return torch.empty(0, dtype=torch.int32, device=log_obs.device)
     n = max(1, min(int(n), t_len))
-    back, path = _forward(log_obs, n)
-    _walk(back, path, n)
+    rows = _forward(log_obs, n)
+    back, maps = _backpointers(rows, n)
+    path = _walk(rows, back, maps, t_len, n)
     viterbi_path.launches += 1
     return path
 
 
 def _forward(log_obs, n: int):
-    """The forward kernel: (back, path) with back's rows 1 .. n-1 (row 0
-    unused) and path[n-1:] set to the last row's argmax."""
-    path = torch.empty(log_obs.shape[0], dtype=torch.int32, device=log_obs.device)
-    back = torch.empty((n, PITCH_BINS), dtype=torch.int16, device=log_obs.device)
-    fn = cuda_build.bind("viterbi", "viterbi_forward", 4,
-                         (ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float))
+    """The forward kernel: (n, 360) fp32 rows, row t = best + log_obs[t]
+    of step t before its renormalization (row 0 = dp[0])."""
+    rows = torch.empty((n, PITCH_BINS), dtype=torch.float32, device=log_obs.device)
+    fn = cuda_build.bind("viterbi", "viterbi_forward", 3,
+                         (ctypes.c_int, ctypes.c_float, ctypes.c_float))
     cuda_build.launch(fn, *(cuda_build.ptr(a) for a in
-                            (log_obs, _band_on(log_obs.device), back, path)),
-                      log_obs.shape[0], n, float(LOG_EPS), float(LOG_INIT))
-    return back, path
+                            (log_obs, _band_on(log_obs.device), rows)),
+                      n, float(LOG_EPS), float(LOG_INIT))
+    return rows
 
 
-def _walk(back, path, n: int):
-    """The walk kernel: fills path[:n-1] from back and path[n-1]."""
-    fn = cuda_build.bind("viterbi", "viterbi_walk", 2, (ctypes.c_int,))
-    cuda_build.launch(fn, cuda_build.ptr(back), cuda_build.ptr(path), n)
+def _backpointers(rows, n: int):
+    """The backpointer kernel: (n, 360) int16 back, row t (1 <= t < n)
+    from rows[t - 1] (row 0 unused), and each span's map, (spans, 360)
+    int16: path[lo - 1] for path[hi - 1] = b over rows lo .. hi - 1."""
+    back = torch.empty((n, PITCH_BINS), dtype=torch.int16, device=rows.device)
+    maps = torch.empty((-(-(n - 1) // SPAN), PITCH_BINS), dtype=torch.int16,
+                       device=rows.device)
+    fn = cuda_build.bind("viterbi", "viterbi_backpointers", 4,
+                         (ctypes.c_int, ctypes.c_float))
+    cuda_build.launch(fn, *(cuda_build.ptr(a) for a in
+                            (rows, _band_on(rows.device), back, maps)),
+                      n, float(LOG_EPS))
+    return back, maps
+
+
+def _walk(rows, back, maps, t_len: int, n: int):
+    """The walk kernel: the (T,) int32 path from the last row's argmax,
+    the span maps and the backpointers."""
+    path = torch.empty(t_len, dtype=torch.int32, device=rows.device)
+    fn = cuda_build.bind("viterbi", "viterbi_walk", 4, (ctypes.c_int, ctypes.c_int))
+    cuda_build.launch(fn, *(cuda_build.ptr(a) for a in (rows, back, maps, path)),
+                      t_len, n)
     return path
 
 

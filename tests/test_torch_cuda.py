@@ -358,17 +358,18 @@ def _viterbi_tie(m_bin, plateau):
     return lo
 
 
-# the walk kernel takes n - 1 backpointer rows in chunks of vt.WALK_ROWS:
-# these n give it chunk - 2 .. chunk + 1 rows and 2 chunk (+ 1)
-_WALK_NS = ([vt.WALK_ROWS + d for d in (-1, 0, 1, 2)]
-            + [2 * vt.WALK_ROWS + d for d in (1, 2)])
+# the walk takes n - 1 backpointer rows in spans of vt.SPAN and the spans'
+# maps in chunks of vt.WALK_MAPS: these n put the rows at a span and a
+# chunk of spans, one or two more, and two of them and two more
+_SPAN_NS = [k * vt.SPAN + d for k in (1, 2) for d in (0, 1, 2)]
+_CHUNK_NS = [k * vt.SPAN * vt.WALK_MAPS + d for k in (1, 2) for d in (0, 1, 2)]
 
 
 @pytest.mark.parametrize("case", ["240/240", "240/224/plateau", "130/111",
                                   "64/64/plateau", "1/1", "2/1", "tie/0/200",
                                   "tie/359/100", "20000/19001", "7751/7751",
                                   "7751/7700/plateau"]
-                         + [f"{2 * vt.WALK_ROWS + 40}/{n}" for n in _WALK_NS])
+                         + [f"{n + 40}/{n}" for n in _SPAN_NS + _CHUNK_NS])
 def test_viterbi_kernel(dev, case):
     rng = np.random.default_rng(sum(map(ord, case)))
     if case.startswith("tie"):
