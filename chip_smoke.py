@@ -326,6 +326,7 @@ def check_kernels(calls: dict) -> dict:
     The Viterbi path must equal the twin's exactly."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from polgen_rvc_tpu_torch.ops import band_attention as ba
     from polgen_rvc_tpu_torch.ops import conv_transpose as ct
@@ -495,15 +496,33 @@ def check_kernels(calls: dict) -> dict:
             raise AssertionError(f"band_attention rel-value term: {band_err} > {band_tol}")
         lens_l = [min(int(n), t) for n in lens.tolist()]
         flops = sum(4.0 * n * n * dk for n in lens_l)
+        ms = cuda_ms(lambda: ba.band_attention(q, k, v, rk, rv, lens, window))
+        # yardstick: flash SDPA on the same q, k, v over each row's valid
+        # keys and queries, rows of one length in one call, no relative terms
+        groups = {}
+        for i, n_valid in enumerate(lens_l):
+            groups.setdefault(n_valid, []).append(i)
+        sdpa_in = [tuple(a[idx, :n_valid].to(bf16)[None] for a in (q, k, v))
+                   for n_valid, idx in groups.items()]
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            sdpa_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(*a, scale=1.0)
+                                       for a in sdpa_in])
+        # clusters of two CTAs a block of rows; those past the row's length
+        # exit before any key tile
+        blocks = -(-t // ba.BLOCK_ROWS)
+        early = sum(2 * (blocks - -(-n_valid // ba.BLOCK_ROWS)) for n_valid in lens_l)
         # the bound takes the peak of the type the main path hands the
         # function (bf16 in a bf16 engine)
-        add("band_attention", err, tol, ref * valid,
-            cuda_ms(lambda: ba.band_attention(q, k, v, rk, rv, lens, window)),
+        add("band_attention", err, tol, ref * valid, ms,
             cuda_ms(lambda: ba.band_attention_plain(q, k, v, rk, rv, lens, window)),
             None, flops, nbytes(q, k, v, rk, rv, lens) + nbytes(q),
             q.dtype, e["count"], [bh, t, dk, lens_l],
             {"rel_value_term": {"max_abs_err": band_err, "tolerance": band_tol,
-                                **abs_stats(band_ref * valid)}})
+                                **abs_stats(band_ref * valid)},
+             "tflop_per_s": flops / ms / 1e9, "sdpa_flash_ms": sdpa_ms,
+             "ctas": 2 * blocks * bh, "early_exit_ctas": early})
+        out["band_attention"]["sdpa_flash_ms"] = (
+            out["band_attention"].get("sdpa_flash_ms", 0.0) + sdpa_ms * e["count"])
 
     unet_cudnn_ms = 0.0
     for e in calls["unet_chain"].values():
@@ -891,7 +910,14 @@ def main() -> int:
                                  "levels; leaves out the ReLU and residual "
                                  "passes; no one call computes the chain and "
                                  "the port never calls it"}
-            if name == "unet_chain" else {})}
+            if name == "unet_chain" else {}),
+         **({"sdpa_flash_ms": kernels[name]["sdpa_flash_ms"],
+             "sdpa_flash_note": "yardstick, not library_ms: flash "
+                                "scaled_dot_product_attention on the same bf16 "
+                                "q, k, v over each row's valid length, without "
+                                "the relative key and value terms, so not this "
+                                "function; the port never calls it"}
+            if name == "band_attention" else {})}
         for name in wrappers
     ]}
     emit(line)

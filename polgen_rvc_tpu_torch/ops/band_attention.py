@@ -10,7 +10,10 @@ Replaces polgen_rvc_tpu/ops/flash_relattn.py:flash_band_attention. On a
 CUDA tensor ``band_attention`` launches the sm_90a streaming-softmax kernel
 of csrc/band_attention.cu for every enc_p attention call, whatever T (the
 TPU path's T >= 512 gate was a tile choice); it never forms a T x T array.
-On a CPU tensor it runs ``band_attention_plain``, which does form one.
+Each block of BLOCK_ROWS query rows is one 2-CTA cluster that splits the
+row's key tiles in two and merges the halves' softmax states in shared
+memory; a block whose rows all lie past the row's length writes zeros. On
+a CPU tensor it runs ``band_attention_plain``, which does form one.
 
 Working precision on the card: bf16 operands (q, k, v, the relative tables,
 and the probabilities in the value product, as in flash kernels), fp32
@@ -26,6 +29,8 @@ import ctypes
 import torch
 
 from . import cuda_build
+
+BLOCK_ROWS = 64  # query rows of one cluster (csrc/band_attention.cu)
 
 
 def band_attention_plain(q, k, v, rel_k, rel_v, lengths, window: int, *,

@@ -194,6 +194,10 @@ def test_conv_transpose_rejects_channels_off_the_tile(dev):
     (2, 77, 16, (77, 40), 1.0),
     (3, 130, 128, (130, 129, 65), 1.0),
     (2, 200, 96, (200, 131), 8.0),  # large rel_k: p peaks on the band
+    (2, 1000, 96, (1000, 100), 1.0),  # whole blocks past row 1's length
+    (1, 1001, 96, (1001,), 1.0),      # T ragged against the 64-row tile
+    (1, 256, 96, (256,), 8.0),        # the key split at 128 crosses the band
+    (2, 300, 96, (300, 290), 8.0),    # 5 tiles: the split at 192 in the band
 ])
 def test_band_attention_kernel(dev, bh, t, dk, lengths, rel_scale):
     rng = np.random.default_rng(t + dk)
@@ -210,6 +214,7 @@ def test_band_attention_kernel(dev, bh, t, dk, lengths, rel_scale):
     p_abs_v = ba.band_attention_plain(q, k, v.abs(), rk, torch.zeros_like(rv), lens,
                                       w, operand_dtype=bf16)
     assert n == 1 and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())  # rows past a length too
     # the same bf16 operands both sides; the kernel rounds p to bf16 (unit
     # roundoff 2^-8) before the value product, so per element
     # |err| <= 2^-8 sum_u p_u |v_u|, plus fp32 summation order; rows past a
