@@ -502,7 +502,7 @@ def check_kernels(calls: dict) -> dict:
         groups = {}
         for i, n_valid in enumerate(lens_l):
             groups.setdefault(n_valid, []).append(i)
-        sdpa_in = [tuple(a[idx, :n_valid].to(bf16)[None] for a in (q, k, v))
+        sdpa_in = [tuple(a[idx, :n_valid].to(bf16).contiguous()[None] for a in (q, k, v))
                    for n_valid, idx in groups.items()]
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
             sdpa_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(*a, scale=1.0)

@@ -49,6 +49,7 @@ constexpr int BQ = 64;        // query rows per block, 16 per warp
 constexpr int BK = 64;        // keys per tile
 constexpr int THREADS = 128;  // four warps
 constexpr int STAGES = 2;     // key/value ring slots
+constexpr int MIN_BLOCKS = 3; // CTAs an SM: at most 168 registers a thread
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -100,20 +101,26 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// Shared memory of one CTA, in bytes, for head width d and band 2w + 1.
 __host__ __device__ constexpr int band_rows_padded(int nr) { return (nr + 7) & ~7; }
 
+// Bytes of the area that holds q's tile in the prologue and the rel-key
+// logits and band probabilities (BQ x NRP fp32 each) after it.
+__host__ __device__ constexpr int q_area_bytes(int d, int nrp) {
+  return BQ * (d + 8) * 2 > 2 * BQ * nrp * 4 ? BQ * (d + 8) * 2 : 2 * BQ * nrp * 4;
+}
+
+// Shared memory of one CTA, in bytes, for head width d and band 2w + 1:
+// the ring (rel_k borrows slot 1 in the prologue), the q area, rel_v.
 size_t smem_bytes(int d, int w) {
-  const int sd = d + 8, nrp = band_rows_padded(2 * w + 1);
-  return sizeof(__nv_bfloat16) * ((size_t)STAGES * 2 * BK * sd + (size_t)BQ * sd +
-                                  (size_t)nrp * sd) +
-         sizeof(float) * ((size_t)(2 * w + 1) * d + 2 * (size_t)BQ * nrp);
+  return sizeof(__nv_bfloat16) * (size_t)STAGES * 2 * BK * (d + 8) +
+         q_area_bytes(d, band_rows_padded(2 * w + 1)) +
+         sizeof(float) * (size_t)(2 * w + 1) * d;
 }
 
 // DT: the head width when fixed at compile time (96, the models' width),
 // else 0 and the width D <= 128 comes at run time.
 template <int DT, typename OutT>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 2)
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, MIN_BLOCKS)
 band_attention_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
@@ -127,11 +134,14 @@ band_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int SD = D + 8;  // bf16 row stride: 16-byte rows, no bank conflicts
   const int NR = 2 * W + 1, NRP = band_rows_padded(NR);
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* qs = ring + STAGES * 2 * BK * SD;     // BQ x SD
-  __nv_bfloat16* rks = qs + BQ * SD;                   // NRP x SD, zero rows >= NR
-  float* rv = reinterpret_cast<float*>(rks + NRP * SD);  // NR x D
-  float* qr = rv + NR * D;                             // BQ x NRP
+  // prologue only: rel_k (NRP x SD, zero rows >= NR) in ring slot 1, q's
+  // tile (BQ x SD) in the q area; then the q area holds qr and pb
+  __nv_bfloat16* rks = ring + 2 * BK * SD;
+  __nv_bfloat16* qs = ring + STAGES * 2 * BK * SD;
+  float* qr = reinterpret_cast<float*>(qs);            // BQ x NRP
   float* pb = qr + BQ * NRP;                           // BQ x NRP
+  float* rv = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(qs) +
+                                       q_area_bytes(D, NRP));  // NR x D
   // CTA 1's state for the merge, over CTA 0's ring once both are done
   float* mo = reinterpret_cast<float*>(smem_raw);      // BQ x D
   float* mm = mo + BQ * D;                             // BQ
@@ -198,6 +208,7 @@ band_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int kk = 0; kk < MAXD / 16; ++kk)
     if (kk < KD) ldsm_x4(qa[kk], qs + (row0 + (lane & 15)) * SD + kk * 16 + (lane >> 4) * 8);
+  __syncthreads();  // every warp has its q fragments: the q area is free
 
   // rel-key logits of the warp's rows on the tensor cores (products of
   // bf16 values, fp32 sums), then into the warp's rows of qr
@@ -260,19 +271,23 @@ band_attention_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     const bool band = k0 <= tw + 15 + W && k0 + BK - 1 >= tw - W;
+    if (band) {
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
+      for (int nt = 0; nt < BK / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = g + (e >> 1) * 8;  // the warp's row
-        const int u = k0 + nt * 8 + 2 * qd + (e & 1);
-        float val = s[nt][e];
-        if (band) {
-          const int off = u - (tw + r) + W;
-          if (off >= 0 && off < NR) val += qrw[r * NRP + off];
+        for (int e = 0; e < 4; ++e) {
+          const int r = g + (e >> 1) * 8;  // the warp's row
+          const int off = k0 + nt * 8 + 2 * qd + (e & 1) - (tw + r) + W;
+          if (off >= 0 && off < NR) s[nt][e] += qrw[r * NRP + off];
         }
-        s[nt][e] = u < len ? val : NEG;
-      }
+    }
+    if (k0 + BK > len) {  // the row's last tile: keys past the length
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + nt * 8 + 2 * qd + (e & 1) >= len) s[nt][e] = NEG;
+    }
 
     // online softmax of rows g (h = 0) and g + 8 (h = 1), base 2; the
     // first tile of a CTA has a valid key, so the running max is finite
@@ -353,8 +368,9 @@ band_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
           for (int dn = 0; dn < MAXD / 8; ++dn) {
             if (dn < ND) {
-              o[dn][2 * h] += pj * rvr[dn * 8];
-              o[dn][2 * h + 1] += pj * rvr[dn * 8 + 1];
+              const float2 rvv = *reinterpret_cast<const float2*>(rvr + dn * 8);
+              o[dn][2 * h] += pj * rvv.x;
+              o[dn][2 * h + 1] += pj * rvv.y;
             }
           }
         }
@@ -436,8 +452,8 @@ POLGEN_API int band_attention(const void* q, const void* k, const void* v,
                               const void* relk, const void* relv,
                               const void* lengths, void* out, int BH, int T,
                               int D, int W, int out_f32, void* stream) {
-  if (D < 16 || D > 128 || D % 16 != 0 || W < 0 || BH < 1 || T < 1 ||
-      BH > 65535 || smem_bytes(D, W) > 227 * 1024)
+  if (D < 16 || D > 128 || D % 16 != 0 || W < 0 || band_rows_padded(2 * W + 1) > BK ||
+      BH < 1 || T < 1 || BH > 65535)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err =

@@ -91,6 +91,8 @@ def band_attention(q, k, v, rel_k, rel_v, lengths, window: int):
     bh, t, dk = q.shape
     if dk % 16 or dk > 128:
         raise ValueError(f"band_attention: dk={dk} is not a multiple of 16 up to 128")
+    if 2 * window + 1 > BLOCK_ROWS:
+        raise ValueError(f"band_attention: window={window} is above {(BLOCK_ROWS - 1) // 2}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"band_attention: dtype {q.dtype} is neither bfloat16 nor float32")
     tensors = (q, k, v, rel_k, rel_v, lengths)
