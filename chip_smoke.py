@@ -47,7 +47,12 @@ printing one JSON line (any failure raises; exit code != 0):
                bytes their design moves, and a cuDNN yardstick (the
                group's 18 convs as bf16 F.conv1d calls, the level's 8 3x3
                convs and its 1x1 shortcut as bf16 F.conv2d calls); for the
-               U-Net chain the tile and grid of each level's launches.
+               U-Net chain the tile and grid of each level's launches; for
+               the Viterbi decode its three launches timed apart (forward,
+               backpointers, walk); for band attention its TFLOP/s, its
+               CTAs and those that exit early (rows all past the length),
+               and a flash-SDPA yardstick on the same q, k, v over each
+               row's valid length (no relative terms).
   4. reference: the same full-width models on a 2 s input, on the card
                (bf16) and on the CPU (float32 plain twins), same noise.
                The two rmvpe+ F0 passes agree on >= 90% of coarse bins, and
@@ -504,6 +509,9 @@ def check_kernels(calls: dict) -> dict:
             groups.setdefault(n_valid, []).append(i)
         sdpa_in = [tuple(a[idx, :n_valid].to(bf16).contiguous()[None] for a in (q, k, v))
                    for n_valid, idx in groups.items()]
+        # the wrapper's copies of q, k, v into the kernel's (BH, T, dk)
+        # layout where the caller's tensors are views in another
+        copies_ms = cuda_ms(lambda: [ba._operand(a) for a in (q, k, v)])
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
             sdpa_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(*a, scale=1.0)
                                        for a in sdpa_in])
@@ -520,6 +528,8 @@ def check_kernels(calls: dict) -> dict:
             {"rel_value_term": {"max_abs_err": band_err, "tolerance": band_tol,
                                 **abs_stats(band_ref * valid)},
              "tflop_per_s": flops / ms / 1e9, "sdpa_flash_ms": sdpa_ms,
+             "operand_copies_ms": copies_ms,
+             "contiguous": [a.is_contiguous() for a in (q, k, v)],
              "ctas": 2 * blocks * bh, "early_exit_ctas": early})
         out["band_attention"]["sdpa_flash_ms"] = (
             out["band_attention"].get("sdpa_flash_ms", 0.0) + sdpa_ms * e["count"])

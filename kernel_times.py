@@ -6,7 +6,8 @@
 Inputs at the shapes the 60 s song gives them (see chip_smoke.py), made
 from a seed: K6 on a (7,751, 360) random-walk track with all-tie frames,
 all rows valid; K4 on bf16 q, k, v of (4, 3,998, 96), window 10, lengths
-(2,744, 2,744, 3,654, 3,654). Prints one JSON line of device times (CUDA
+(2,744, 2,744, 3,654, 3,654) and, apart, every row at its full
+length. Prints one JSON line of device times (CUDA
 events, mean over --reps calls after one warm-up), with the nvidia-smi
 name and power limit. It times only the public wrappers and, where the
 module has them, the launches inside a call, so that two checkouts can be
@@ -55,10 +56,14 @@ def band_attention_times(reps: int) -> dict:
     q = rand(bh, t, dk, scale=dk ** -0.5)
     k, v = rand(bh, t, dk), rand(bh, t, dk)
     rk, rv = rand(2 * w + 1, dk, scale=dk ** -0.5), rand(2 * w + 1, dk, scale=dk ** -0.5)
-    lens = torch.tensor(lengths, device="cuda")
-    ms = cuda_ms(lambda: ba.band_attention(q, k, v, rk, rv, lens, w), reps)
-    flops = sum(4.0 * n * n * dk for n in lengths)
-    return {"ms": ms, "tflop_per_s": flops / ms / 1e9}
+    out = {}
+    # the main path's lengths, then every row at its full T
+    for name, lengths in (("", lengths), ("full_", (t,) * bh)):
+        lens = torch.tensor(lengths, device="cuda")
+        ms = cuda_ms(lambda: ba.band_attention(q, k, v, rk, rv, lens, w), reps)
+        flops = sum(4.0 * n * n * dk for n in lengths)
+        out.update({f"{name}ms": ms, f"{name}tflop_per_s": flops / ms / 1e9})
+    return out
 
 
 def main() -> int:

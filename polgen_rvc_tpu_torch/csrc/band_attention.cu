@@ -117,6 +117,25 @@ size_t smem_bytes(int d, int w) {
          sizeof(float) * (size_t)(2 * w + 1) * d;
 }
 
+// The (batch, head) row of this CTA: blockIdx.y-th in order of decreasing
+// length (ties by index), so that the longest rows' blocks are scheduled
+// first and the last wave holds short ones. Quadratic in the rows, so only
+// up to 64 of them; past that, in index order.
+__device__ __forceinline__ int row_by_length(const int* lengths, int T) {
+  const int rows = gridDim.y;
+  if (rows > 64) return blockIdx.y;
+  for (int b = 0; b < rows; ++b) {
+    const int lb = min(lengths[b], T);
+    int before = 0;
+    for (int c = 0; c < rows; ++c) {
+      const int lc = min(lengths[c], T);
+      before += lc > lb || (lc == lb && c < b);
+    }
+    if (before == (int)blockIdx.y) return b;
+  }
+  return blockIdx.y;
+}
+
 // DT: the head width when fixed at compile time (96, the models' width),
 // else 0 and the width D <= 128 comes at run time.
 template <int DT, typename OutT>
@@ -149,7 +168,7 @@ band_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
-  const int bh = blockIdx.y;
+  const int bh = row_by_length(lengths, T);
   const int t0 = (blockIdx.x >> 1) * BQ;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;

@@ -19,7 +19,8 @@ CUDA tensor ``viterbi_path`` launches the three sm_90a kernels of
 csrc/viterbi.cu: the serial forward recursion in one thread block
 (``_forward``), the backpointers of every step and the maps of 16-row
 spans in parallel (``_backpointers``), and the walk over the maps, then
-the spans (``_walk``); one call counts one launch. On a CPU tensor it runs ``viterbi_path_plain``.
+the spans (``_walk``); one call counts one launch. On a CPU tensor it
+runs ``viterbi_path_plain``.
 """
 
 from __future__ import annotations
