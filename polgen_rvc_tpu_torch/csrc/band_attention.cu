@@ -15,18 +15,24 @@
 //
 // - Work. A 64-row query block of one (batch, head) is split over a
 //   2-CTA thread-block cluster: CTA 0 walks the first half of the key tiles
-//   up to the row's length, CTA 1 the second, so the main path's 204 live
-//   row blocks become 408 CTAs of 22-29 tiles. At the end CTA 1 writes its
-//   softmax state (running max m, sum l, unnormalized o) into CTA 0's
-//   shared memory through the cluster's distributed shared memory (over
-//   its now idle key ring, after a cluster barrier), and CTA 0 merges the
-//   two and writes the rows. Blocks wholly past their row's length write
-//   zeros and return before any key tile.
+//   up to the row's length, CTA 1 the second, so the main path's 202 live
+//   row blocks become 404 CTAs of 21-29 tiles, about the 396 slots of
+//   three CTAs an SM. At the end CTA 1 writes its softmax state (running
+//   max m, sum l, unnormalized o) into CTA 0's shared memory through the
+//   cluster's distributed shared memory (over its now idle key ring, after
+//   a cluster barrier), and CTA 0 merges the two and writes the rows.
+//   Blocks wholly past their row's length write zeros and return before
+//   any key tile. Rows are taken longest first, so the last wave holds
+//   short rows' blocks.
 // - Loads. Each CTA holds 64 query rows, 16 per warp, q as A fragments in
 //   registers (ldmatrix.x4). Key/value tiles of 64 go through a two-slot
 //   cp.async ring, one barrier a tile: the next tile's copy is in flight
 //   during this tile's products. K's B fragments come by ldmatrix.x4, V's
-//   by ldmatrix.x4.trans (no transpose pass).
+//   by ldmatrix.x4.trans (no transpose pass). rel_k borrows the ring's
+//   second slot and q's tile gives way to the rel-key logits and band
+//   probabilities once its fragments are loaded: 73 KB of shared memory
+//   and at most 168 registers a thread fit three CTAs an SM. Only a row's
+//   last tile masks keys past its length.
 // - Softmax online in fp32 in the score fragments, in base 2: one FFMA
 //   folds log2(e) and the running max, then ex2.approx. p is rounded to
 //   bf16 for the value product, as flash kernels do.

@@ -231,6 +231,15 @@ def test_band_attention_kernel(dev, bh, t, dk, lengths, rel_scale):
                                    rtol=2 ** -8, atol=1e-5)  # one bf16 rounding
 
 
+def test_band_attention_rejects_windows_past_the_tile(dev):
+    """The band's 2w + 1 rel-key rows must fit one 64-key tile slot."""
+    q = torch.zeros(1, 64, 16, device=dev)
+    w = ba.BLOCK_ROWS // 2
+    rel = torch.zeros(2 * w + 1, 16, device=dev)
+    with pytest.raises(ValueError, match="window"):
+        ba.band_attention(q, q, q, rel, rel, torch.tensor([64], device=dev), w)
+
+
 # every (C_in, C_out, W) family of the main path's U-Net levels, from enc0's
 # first conv to the intermediate and dec0 levels, and C_out = 48
 _UNET_FAMILIES = [(1, 16, 128), (16, 16, 128), (32, 16, 128), (16, 32, 64),
