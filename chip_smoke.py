@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-It drives both ported F0 paths, rmvpe+ (the main path) and mangio-crepe,
-and holds each of the five kernels against its plain twin. Phases, each
-printing one JSON line (any failure raises; exit code != 0):
+It drives five paths: rmvpe+ (the main path), mangio-crepe, fcpe, a no-f0
+model and a v1 32 kHz model, and holds each of the five kernels against
+its plain twin. Phases, each printing one JSON line (any failure raises;
+exit code != 0):
   1. card:     nvidia-smi name and power limit, torch/CUDA versions, the
                parallel nvcc build of every kernel from csrc/ and its time.
   2. main:     the main path, as bench.py times it on an accelerator:
@@ -29,6 +30,22 @@ printing one JSON line (any failure raises; exit code != 0):
                unet_chain (RMVPE's) does not; then its
                profile (crepe_profile), with each CREPE layer's conv and
                epilogue timed alone on one 2,048-frame slab.
+  fcpe:        the same with the full FCPE (12 layers x 512 channels,
+               with_fcpe=True) and f0_method="fcpe": the resblock group 36
+               times, conv-transpose 4, band attention, neither unet_chain
+               nor viterbi; then its profile (fcpe_profile), with the FCPE
+               pass's share of the convert's kernel time.
+  nof0:        the 48 kHz v2 model built with use_f0=False: the same
+               launch counts, and no F0 pass runs.
+  v1_32k:      a v1 32 kHz f0 model of RVC-Project's configs/v1/32k.json
+               shape (upsample rates 10, 4, 2, 2, 2, kernels 16, 16, 4, 4,
+               4 from 512 channels; HuBERT's final_proj into the 256-wide
+               content input), built by patching the port's
+               convert.synthetic.V2_CONFIGS[32000] inside this script, on
+               rmvpe+: the resblock group 45 times (5 stages x 9 pairs),
+               conv-transpose 5, unet_chain 112. Its second stage has
+               padding 6 > stride 4 (conv-transpose offsets -2..2) and its
+               fifth is 16 wide, padded to 32 at load.
   3. kernels:  every kernel's wrapper again on the very inputs its path
                gives it (recorded during one more, untimed convert of each
                path), held against its plain PyTorch twin on the same inputs
@@ -53,13 +70,21 @@ printing one JSON line (any failure raises; exit code != 0):
                CTAs and those that exit early (rows all past the length),
                and a flash-SDPA yardstick on the same q, k, v over each
                row's valid length (no relative terms).
+  kernels_v1_32k: the conv-transpose and resblock-group kernels the same
+               way on the v1_32k path's inputs (u = 4, k = 16, padding 6;
+               the padded 16 -> 32 stage), whose padded channels must come
+               out exactly zero; per shape, not added to the kernels line.
   4. reference: the same full-width models on a 2 s input, on the card
                (bf16) and on the CPU (float32 plain twins), same noise.
                The two rmvpe+ F0 passes agree on >= 90% of coarse bins, and
                on one F0 (as tests/test_quality.py pins it) the renditions
                stay below the repo's 0.5 dB mel-distortion gate. The two
                mangio-crepe F0 passes (float16 salience on both) stay in
-               the bf16 bounds of tests/test_f0_methods.py.
+               the bf16 bounds of tests/test_f0_methods.py; the two fcpe
+               passes (float32 on both) in its fcpe bounds (median relative
+               error < 1e-4, > 95% of frames below 1e-2, > 95% of coarse
+               bins equal). The no-f0 renditions, and the v1 32 kHz
+               renditions on one F0, stay below 0.5 dB.
 Then the {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -79,9 +104,17 @@ SONG_SECONDS = 60.0
 BENCH_OPTS = dict(index_rate=0.5, protect=0.33, volume_envelope=0.25)
 BENCH_TIERS = dict(x_pad=1, x_query=6, x_center=30, x_max=32, chunk_batch=2,
                    bucket_step_s=4)
+# RVC-Project configs/v1/32k.json: the decoder the v1_32k path runs
+V1_32K = dict(spec=513, up_rates=[10, 4, 2, 2, 2], up_k=[16, 16, 4, 4, 4])
+
+
+T_START = time.perf_counter()
 
 
 def emit(obj):
+    """One JSON line; a phase's line also carries the script's time so far."""
+    if "phase" in obj:
+        obj = {**obj, "script_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -185,6 +218,12 @@ def profile_convert(vc, song, opts) -> dict:
     and the kernels by device time. The port's kernels show under their
     mangled names (pair_kernel, convt_kernel, band_attention_kernel,
     unet_conv3x3_kernel)."""
+    return profile_call(lambda: vc.convert(song, opts))
+
+
+def profile_call(fn) -> dict:
+    """fn() once under torch.profiler: wall time, kernel time, idle share
+    and the kernels by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -192,7 +231,7 @@ def profile_convert(vc, song, opts) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        vc.convert(song, opts)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = []
@@ -341,6 +380,8 @@ def check_kernels(calls: dict) -> dict:
 
     bf16 = torch.bfloat16
     out = {}
+    calls = {name: calls.get(name, {}) for name in
+             ("resblock_group", "conv_transpose", "band_attention", "unet_chain", "viterbi")}
 
     def rnd(t):
         return t.to(bf16).float()
@@ -660,9 +701,22 @@ def check_kernels(calls: dict) -> dict:
     return out
 
 
+def model_bytes(vc) -> int:
+    """Device bytes of the converter's parameters (packed layouts included)."""
+    seen = {}
+    for tree in (vc.synth_params, vc.hubert_params, vc.rmvpe_params, vc.index_bank,
+                 vc.crepe_params, vc.fcpe_params):
+        for t in tree_tensors(tree):
+            seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
 def drive(vc, song, opts, wrappers: dict) -> dict:
     """One warm-up convert; then every kernel's launch count set to 0, one
-    timed convert, the counts read. Returns its numbers and output."""
+    timed convert, the counts read. Returns its numbers and output. Peak
+    memory: max_memory_allocated counts whatever the script still holds
+    on the card (the main path's recorded kernel inputs, once recorded);
+    peak_own_bytes counts only this converter's weights and the convert."""
     import torch
 
     t0 = time.perf_counter()
@@ -673,24 +727,29 @@ def drive(vc, song, opts, wrappers: dict) -> dict:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     out, sr = vc.convert(song, opts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    weights = model_bytes(vc)
     return {"warmup_s": warm_s, "wall_s": wall,
             "realtime_factor": SONG_SECONDS / wall,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_allocated": peak, "resident_before_bytes": resident,
+            "model_bytes": weights, "peak_own_bytes": peak - resident + weights,
             "launches": {name: fn.launches for name, fn in wrappers.items()},
             "out": out, "sr": sr}
 
 
-def check_output(run: dict, expected: int, path: str, launched, idle):
+def check_output(run: dict, expected: int, path: str, launched, idle,
+                 sample_rate: int = 48000):
     """The path's output has the planned length and is not silent; the
     kernels in `launched` ran in its timed convert, those in `idle` not."""
     out, sr = run["out"], run["sr"]
-    if out.shape[0] != expected or sr != 48000:
+    if out.shape[0] != expected or sr != sample_rate:
         raise AssertionError(f"{path}: output {out.shape[0]} samples @ {sr}, "
-                             f"expected {expected} @ 48000")
+                             f"expected {expected} @ {sample_rate}")
     if int(np.abs(out.astype(np.int32)).max()) < 1000 or not np.all(np.isfinite(out)):
         raise AssertionError(f"{path}: output is silent")
     missing = [k for k in launched if run["launches"][k] == 0]
@@ -701,11 +760,68 @@ def check_output(run: dict, expected: int, path: str, launched, idle):
         raise AssertionError(f"{path}: kernels of another path launched: {extra}")
 
 
-def check_resblock_launches(run: dict, path: str):
-    """One launch per conv pair: 4 decoder stages x 9 pairs, one chunk batch."""
-    if run["launches"]["resblock_group"] != 36:
+def check_resblock_launches(run: dict, path: str, stages: int = 4):
+    """One launch per conv pair: decoder stages x 9 pairs, one chunk batch."""
+    if run["launches"]["resblock_group"] != 9 * stages:
         raise AssertionError(f"{path}: resblock_group launched "
-                             f"{run['launches']['resblock_group']} times, not 36")
+                             f"{run['launches']['resblock_group']} times, not {9 * stages}")
+
+
+def check_convt_launches(run: dict, path: str, stages: int = 4):
+    """One conv-transpose launch per decoder stage, one chunk batch."""
+    if run["launches"]["conv_transpose"] != stages:
+        raise AssertionError(f"{path}: conv_transpose launched "
+                             f"{run['launches']['conv_transpose']} times, not {stages}")
+
+
+def expected_samples(vc, song, eng, sr: int) -> int:
+    """The output length convert plans for this song."""
+    from polgen_rvc_tpu_torch.ops.filters import highpass_pad_quant
+    from polgen_rvc_tpu_torch.pipeline.chunking import plan_chunks
+
+    audio, _, _, _ = highpass_pad_quant(song, eng.t_pad, eng.window)
+    plan = plan_chunks(audio, eng)
+    upp = vc.synth_cfg.upp
+    return sum(
+        max(min((c.slice_end - c.slice_start) // eng.window,
+                2 * vc.hubert_cfg.num_frames(c.slice_end - c.slice_start))
+            * upp - 2 * sr * eng.x_pad, 0)
+        for c in plan.chunks
+    )
+
+
+def padding_stays_zero(calls: dict) -> dict:
+    """On the recorded inputs of a path with a padded decoder stage: where a
+    conv-transpose's weight and bias are zero from channel c on, its kernel
+    output is exactly zero there; where a resblock group's input is zero
+    from channel c on, so is its kernel output."""
+    from polgen_rvc_tpu_torch.ops import conv_transpose as ct
+    from polgen_rvc_tpu_torch.ops import resblock_group as rg
+
+    def live_channels(nonzero):
+        idx = nonzero.nonzero()
+        return int(idx.max()) + 1 if idx.numel() else 0
+
+    seen = []
+    for e in calls.get("conv_transpose", {}).values():
+        x, w, bias = e["args"][:3]
+        c = live_channels((w.abs().amax(dim=(0, 2)) > 0) | (bias != 0))
+        if c < w.shape[1]:
+            y = ct.conv_transpose1d(x, w, bias, **e["kwargs"])
+            if bool(y[:, c:].any()):
+                raise AssertionError("conv_transpose: padded channels not zero")
+            seen.append({"kernel": "conv_transpose", "channels": [c, w.shape[1]]})
+    for e in calls.get("resblock_group", {}).values():
+        x, params, ks, ds = e["args"]
+        c = live_channels(x.abs().amax(dim=(0, 2)) > 0)
+        if c < x.shape[1]:
+            y = rg.fused_resblock_group(x, params, ks, ds)
+            if bool(y[:, c:].any()):
+                raise AssertionError("resblock_group: padded channels not zero")
+            seen.append({"kernel": "resblock_group", "channels": [c, x.shape[1]]})
+    if len(seen) != 2:
+        raise AssertionError(f"expected one padded stage of each kernel, saw {seen}")
+    return {"padded_stages": seen}
 
 
 def check_unet_launches(run: dict, path: str):
@@ -721,6 +837,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from unittest import mock
+
+    from polgen_rvc_tpu_torch.convert import synthetic
     from polgen_rvc_tpu_torch.ops import (
         band_attention, conv_transpose, cuda_build, resblock_group, unet_chain, viterbi,
     )
@@ -771,13 +890,7 @@ def main() -> int:
 
     audio, _, _, _ = highpass_pad_quant(song, eng.t_pad, eng.window)
     plan = plan_chunks(audio, eng)
-    upp = vc.synth_cfg.upp
-    expected = sum(
-        max(min((c.slice_end - c.slice_start) // eng.window,
-                2 * vc.hubert_cfg.num_frames(c.slice_end - c.slice_start))
-            * upp - 2 * run["sr"] * eng.x_pad, 0)
-        for c in plan.chunks
-    )
+    expected = expected_samples(vc, song, eng, 48000)
     main = {"phase": "main", "seconds_audio": SONG_SECONDS, "chunks": len(plan.chunks),
             "setup_s": setup_s, **{k: v for k, v in run.items() if k != "out"},
             "out_samples": int(run["out"].shape[0]), "expected_samples": expected,
@@ -824,16 +937,110 @@ def main() -> int:
     launches["viterbi"] = crun["launches"]["viterbi"]
     del cvc, crun
 
+    # ---- fcpe path ---------------------------------------------------------
+    t0 = time.perf_counter()
+    fvc = build_synthetic_converter(tiny=False, sr=48000, index_vectors=65536,
+                                    engine=eng, device="cuda", with_fcpe=True)
+    setup_s = time.perf_counter() - t0
+    fopts = ConversionOptions(f0_method="fcpe", **BENCH_OPTS)
+    frun = drive(fvc, song, fopts, wrappers)
+    fprofile = profile_convert(fvc, song, fopts)
+    _, qbuf, inv_scale, padded_len = highpass_pad_quant(song, eng.t_pad, eng.window)
+    fbuf = torch.from_numpy(qbuf).cuda().float() * float(inv_scale)
+    f0_profile = profile_call(lambda: fvc.compute_f0(fbuf, fopts, padded_len))
+    emit({"phase": "fcpe", "seconds_audio": SONG_SECONDS, "setup_s": setup_s,
+          "fcpe": {"layers": fvc.fcpe_cfg.n_layers, "channels": fvc.fcpe_cfg.n_chans,
+                   "heads": fvc.fcpe_cfg.n_heads,
+                   "features": fvc.fcpe_params["layers"][0]["attn"]["projection_matrix"].shape[0],
+                   "frames": qbuf.shape[0] // fvc.fcpe_cfg.hop_size + 1},
+          **{k: v for k, v in frun.items() if k != "out"},
+          "out_samples": int(frun["out"].shape[0]), "expected_samples": expected,
+          "peak_int16": int(np.abs(frun["out"].astype(np.int32)).max()), "card": smi})
+    emit({"phase": "fcpe_profile",
+          **{k: v for k, v in fprofile.items() if k != "kernels"},
+          "top": fprofile["kernels"][:10],
+          "fcpe_pass": {"wall_ms": f0_profile["wall_ms"],
+                        "device_busy_ms": f0_profile["device_busy_ms"],
+                        "share_of_convert_kernel_time":
+                            f0_profile["device_busy_ms"] / fprofile["device_busy_ms"],
+                        "top": f0_profile["kernels"][:8]}})
+    check_output(frun, expected, "fcpe path", launched=synth_kernels,
+                 idle=("unet_chain", "viterbi"))
+    check_resblock_launches(frun, "fcpe path")
+    check_convt_launches(frun, "fcpe path")
+    del fvc, frun, fbuf
+
+    # ---- no-f0 model -------------------------------------------------------
+    t0 = time.perf_counter()
+    nvc = build_synthetic_converter(tiny=False, sr=48000, index_vectors=65536,
+                                    engine=eng, device="cuda", use_f0=False)
+    setup_s = time.perf_counter() - t0
+    f0_passes = []
+    real_f0 = nvc.compute_f0
+    nvc.compute_f0 = lambda *a, **k: (f0_passes.append(1), real_f0(*a, **k))[1]
+    nrun = drive(nvc, song, opts, wrappers)
+    nprofile = profile_convert(nvc, song, opts)
+    emit({"phase": "nof0", "seconds_audio": SONG_SECONDS, "setup_s": setup_s,
+          "f0_passes": len(f0_passes), **{k: v for k, v in nrun.items() if k != "out"},
+          "out_samples": int(nrun["out"].shape[0]), "expected_samples": expected,
+          "peak_int16": int(np.abs(nrun["out"].astype(np.int32)).max()),
+          "profile": {k: v for k, v in nprofile.items() if k != "kernels"},
+          "top": nprofile["kernels"][:8], "card": smi})
+    check_output(nrun, expected, "no-f0 path", launched=synth_kernels,
+                 idle=("unet_chain", "viterbi"))
+    check_resblock_launches(nrun, "no-f0 path")
+    check_convt_launches(nrun, "no-f0 path")
+    if f0_passes or nvc.rmvpe_params is not None:
+        raise AssertionError(f"no-f0 path: {len(f0_passes)} F0 passes ran")
+    del nvc, nrun
+
+    # ---- v1 32 kHz model ---------------------------------------------------
+    t0 = time.perf_counter()
+    with mock.patch.dict(synthetic.V2_CONFIGS, {32000: V1_32K}):
+        vvc = build_synthetic_converter(tiny=False, sr=32000, version="v1",
+                                        index_vectors=65536, engine=eng, device="cuda")
+    setup_s = time.perf_counter() - t0
+    vrun = drive(vvc, song, opts, wrappers)
+    vprofile = profile_convert(vvc, song, opts)
+    vrec = Recorder(names=("resblock_group", "conv_transpose"))
+    try:
+        vvc.convert(song, opts)
+    finally:
+        vrec.restore()
+    v_expected = expected_samples(vvc, song, eng, 32000)
+    emit({"phase": "v1_32k", "seconds_audio": SONG_SECONDS, "setup_s": setup_s,
+          "upsample_rates": list(vvc.synth_cfg.upsample_rates),
+          "upsample_kernel_sizes": list(vvc.synth_cfg.upsample_kernel_sizes),
+          "input_dim": vvc.synth_cfg.input_dim, "version": vvc.version,
+          **{k: v for k, v in vrun.items() if k != "out"},
+          "out_samples": int(vrun["out"].shape[0]), "expected_samples": v_expected,
+          "peak_int16": int(np.abs(vrun["out"].astype(np.int32)).max()),
+          "profile": {k: v for k, v in vprofile.items() if k != "kernels"},
+          "top": vprofile["kernels"][:8], "card": smi})
+    check_output(vrun, v_expected, "v1 32 kHz path",
+                 launched=(*synth_kernels, "unet_chain"), idle=("viterbi",),
+                 sample_rate=32000)
+    check_resblock_launches(vrun, "v1 32 kHz path", stages=5)
+    check_convt_launches(vrun, "v1 32 kHz path", stages=5)
+    check_unet_launches(vrun, "v1 32 kHz path")
+    if vvc.version != "v1" or vvc.synth_cfg.input_dim != 256:
+        raise AssertionError("v1 32 kHz path: not a v1 model")
+    del vvc, vrun
+
     # ---- kernels at their paths' inputs ------------------------------------
     kernels = check_kernels({**rec.calls, **crec.calls})
     del rec, crec
     emit({"phase": "kernels", "detail": kernels})
+    emit({"phase": "kernels_v1_32k", "detail": check_kernels(vrec.calls),
+          **padding_stays_zero(vrec.calls)})
+    del vrec
 
     # ---- reference on a small input ---------------------------------------
     small = dict(x_pad=1, x_query=2, x_center=3, x_max=4, chunk_batch=1,
                  bucket_step_s=2)
-    *model, crepe_params = synthetic_params(tiny=False, sr=48000, index_vectors=4096,
-                                            seed=0, with_crepe=True)
+    *model, crepe_params, (fcpe_cfg, fcpe_params) = synthetic_params(
+        tiny=False, sr=48000, index_vectors=4096, seed=0, with_crepe=True,
+        with_fcpe=True)
     names = ("synth_cfg", "synth_params", "hubert_cfg", "hubert_params",
              "rmvpe_params", "index_bank")
 
@@ -844,7 +1051,8 @@ def main() -> int:
     small_song = bench_song(2.0)
     convs = {dev: VoiceConverter(**dict(zip(names, model)), device=dev,
                                  engine=EngineConfig(**small, compute_dtype=dtype),
-                                 noise_provider=cpu_noise, crepe_params=crepe_params)
+                                 noise_provider=cpu_noise, crepe_params=crepe_params,
+                                 fcpe_params=fcpe_params, fcpe_cfg=fcpe_cfg)
              for dev, dtype in (("cuda", "bfloat16"), ("cpu", "float32"))}
     _, qbuf, inv_scale, padded_len = highpass_pad_quant(small_song, small["x_pad"] * 16000)
     bufs = {dev: torch.from_numpy(qbuf).to(vc.device).float() * float(inv_scale)
@@ -867,6 +1075,19 @@ def main() -> int:
                  "voiced_share_cpu": float(np.mean(pf_cpu > 0)),
                  "gates": {"median_rel": 3e-3, "share_rel_below_2e-2": 0.95,
                            "coarse_max_abs_diff": 3, "share_coarse_within_1": 0.95}}
+    # fcpe: float32 on both (TF32 off on the card); the bounds of
+    # tests/test_f0_methods.py for the JAX package's own two fcpe paths
+    ff0 = {dev: [a.cpu().numpy() for a in vc.compute_f0(bufs[dev], fopts, padded_len)]
+           for dev, vc in convs.items()}
+    pf_card, pf_cpu = ff0["cuda"][1][:p_len], ff0["cpu"][1][:p_len]
+    rel = np.abs(pf_card - pf_cpu) / np.maximum(np.abs(pf_cpu), 1.0)
+    fcpe_ref = {"frames": p_len, "median_rel": float(np.median(rel)),
+                "share_rel_below_1e-2": float(np.mean(rel < 1e-2)),
+                "share_coarse_equal": float(np.mean(ff0["cuda"][0][:p_len]
+                                                    == ff0["cpu"][0][:p_len])),
+                "voiced_share_cpu": float(np.mean(pf_cpu > 0)),
+                "gates": {"median_rel": 1e-4, "share_rel_below_1e-2": 0.95,
+                          "share_coarse_equal": 0.95}}
     # the rest of the path on one F0, as tests/test_quality.py pins it: the
     # card's bf16-operand U-Net flips near-threshold voicing decisions of a
     # random-weight RMVPE against the CPU's fp32 twin
@@ -876,12 +1097,40 @@ def main() -> int:
                          tuple(a.to(d) for a in f0["cpu"]))
         renditions[dev], _ = vc.convert(small_song, opts)
     dist = mel_distortion_db(renditions["cuda"], renditions["cpu"], 48000)
+    del convs
+
+    def card_and_cpu(model, sr, f0_pinned):
+        """Both renditions of the small song by one numpy model set; with
+        f0_pinned, both on the CPU's F0 pass."""
+        vcs = {dev: VoiceConverter(**dict(zip(names, model)), device=dev,
+                                   engine=EngineConfig(**small, compute_dtype=dtype),
+                                   noise_provider=cpu_noise)
+               for dev, dtype in (("cuda", "bfloat16"), ("cpu", "float32"))}
+        if f0_pinned:
+            pinned = [a.cpu() for a in vcs["cpu"].compute_f0(bufs["cpu"], opts)]
+            for vc in vcs.values():
+                vc.compute_f0 = (lambda buf, o, padded=None, d=vc.device:
+                                 tuple(a.to(d) for a in pinned))
+        outs = {dev: vc.convert(small_song, opts)[0] for dev, vc in vcs.items()}
+        if outs["cuda"].shape != outs["cpu"].shape:
+            raise AssertionError(f"{sr} Hz renditions differ in length")
+        return mel_distortion_db(outs["cuda"], outs["cpu"], sr)
+
+    nof0_dist = card_and_cpu(synthetic_params(tiny=False, sr=48000, index_vectors=4096,
+                                              seed=0, use_f0=False), 48000, False)
+    with mock.patch.dict(synthetic.V2_CONFIGS, {32000: V1_32K}):
+        v1_model = synthetic_params(tiny=False, sr=32000, version="v1",
+                                    index_vectors=4096, seed=0)
+    v1_dist = card_and_cpu(v1_model, 32000, True)
     emit({"phase": "reference", "input_s": 2.0, "card_dtype": "bfloat16",
           "cpu_dtype": "float32", "samples": [int(renditions["cuda"].shape[0]),
                                               int(renditions["cpu"].shape[0])],
           "f0_coarse_equal_frac": coarse_equal, "f0_gate": 0.9,
           "mel_distortion_db_same_f0": dist, "gate_db": 0.5,
-          "crepe_f0": crepe_ref, "script_s_so_far": time.perf_counter() - t_start})
+          "crepe_f0": crepe_ref, "fcpe_f0": fcpe_ref,
+          "nof0_mel_distortion_db": nof0_dist,
+          "v1_32k_mel_distortion_db_same_f0": v1_dist,
+          "script_s_so_far": time.perf_counter() - t_start})
     if renditions["cuda"].shape != renditions["cpu"].shape or not dist < 0.5:
         raise AssertionError(f"card vs CPU reference: {dist} dB")
     if not coarse_equal >= 0.9:
@@ -890,6 +1139,11 @@ def main() -> int:
             and crepe_ref["coarse_max_abs_diff"] <= 3
             and crepe_ref["share_coarse_within_1"] > 0.95):
         raise AssertionError(f"card vs CPU mangio-crepe F0: {crepe_ref}")
+    if not (fcpe_ref["median_rel"] < 1e-4 and fcpe_ref["share_rel_below_1e-2"] > 0.95
+            and fcpe_ref["share_coarse_equal"] > 0.95):
+        raise AssertionError(f"card vs CPU fcpe F0: {fcpe_ref}")
+    if not (nof0_dist < 0.5 and v1_dist < 0.5):
+        raise AssertionError(f"card vs CPU: no-f0 {nof0_dist} dB, v1 32 kHz {v1_dist} dB")
 
     sources = {
         "resblock_group": "polgen_rvc_tpu/ops/pallas_resblock.py:176",

@@ -1,5 +1,6 @@
-"""PolGen-RVC on PyTorch and CUDA: the rmvpe+ and mangio-crepe
-voice-conversion paths for one NVIDIA H100 (sm_90a).
+"""PolGen-RVC on PyTorch and CUDA: voice conversion with the rmvpe+,
+mangio-crepe and fcpe F0 methods, for f0 and no-f0, v1 and v2 models at
+32, 40 and 48 kHz, on one NVIDIA H100 (sm_90a).
 
 A second implementation of the system beside the JAX package, held against
 it by the tests. It imports torch, numpy and scipy, never jax, and keeps its
@@ -9,7 +10,7 @@ Layer map (mirrors the JAX package so each counterpart is easy to find):
     ops/        torch-semantics convs, STFT/mel, GRU, F0 decode, high-pass,
                 and the five hand-written CUDA kernels with their plain twins
     csrc/       the kernels' CUDA C++ sources, built with nvcc at first use
-    models/     synthesizer / NSF decoder / HuBERT / RMVPE / CREPE as
+    models/     synthesizer / NSF decoder / HuBERT / RMVPE / CREPE / FCPE as
                 functions of parameter dictionaries
     convert/    synthetic checkpoints and state-dict -> parameter dictionaries
     retrieval/  exact top-k feature retrieval

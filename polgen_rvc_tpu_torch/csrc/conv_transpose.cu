@@ -1,31 +1,39 @@
 // ConvTranspose1d for kernel k, stride u and padding p with k - 2p = u and
-// 0 <= p <= u: the NSF decoder's upsampling, T_out = T_in * u. Output sample
-// t = m*u + r draws on input m + d only for the offsets d of D(r): d = 0
-// always, d = -1 when r < p, d = +1 when r >= u - p. So
+// 0 <= p <= 2u: the NSF decoder's upsampling, T_out = T_in * u. Output
+// sample t = m*u + r draws on input m + d only for the offsets d of D(r) =
+// {d : 0 <= r + p - d*u < k}, the run floor((r - p)/u) .. floor((r + p)/u).
+// So
 //
 //   y[b,o,m*u+r] = bias[o] + sum_c sum_{d in D(r)} W[c,o,r+p-d*u] x[b,c,m+d]
 //
-// with x read as zero outside [0, T_in). Every kernel tap belongs to exactly
+// with x read as zero outside [0, T_in). Every offset lies within -H..H for
+// the halo H = ceil(p/u) <= 2 (v1 32 kHz's u = 4, k = 16, p = 6 has H = 2,
+// every other published stage H = 1). Every kernel tap belongs to exactly
 // one (r, d) pair, so the packed weights (ops/conv_transpose.py,
 // pack_phase_taps) are the k taps as (k, C_out, C_in) bf16 in phase order:
-// phase r's taps start at block r + min(r, p) + max(0, r - (u - p)), in
-// ascending d. No zero tap is stored or multiplied: at k = 2u each phase has
-// two taps, at 40 kHz's k = 16, u = 10 phases 3..6 have one.
+// phase r's taps start at block sum_{r' < r} |D(r')|, in ascending d. No
+// zero tap is stored or multiplied: at k = 2u each phase has two taps, at
+// 40 kHz's k = 16, u = 10 phases 3..6 have one, at v1 32 kHz's k = 16,
+// u = 4 every phase has four.
 //
 // Replaces polgen_rvc_tpu/ops/pallas_convtranspose.py:conv_transpose1d_pallas
 // (all u phases stacked on M over a 3-tap im2col, bf16 operands, fp32
 // accumulation and bias, the result in x's dtype), which this computes in
-// the same precision.
+// the same precision. That kernel packs offsets -1..1 only, so where p > u
+// it drops the outer taps; this one keeps them, as the JAX package's XLA
+// conv_transpose does.
 //
 // Bound: operations at u = 12 and 10 (2 k C_in C_out T_in FLOP against few
 // bytes), bytes at u = 2 (each output written once, at T_out = 2 T_in).
 // Design: bf16 in and out with no cast pass around the kernel (fp32 in and
 // out for checks at fp32 summation order). A block of eight warps owns one
 // batch row, BN input positions and BM output channels, for all u phases.
-// It stages x[:, m0-1 : m0+BN+1] once, for the whole of C_in, as bf16 in
-// shared memory (time-major, channels contiguous, so every tap offset d is
-// the same buffer shifted by one row). Warps then take tasks of (phase,
-// 32 channels, 64 positions): mma.sync m16n8k16 with the taps' weights as A
+// It stages x[:, m0-H : m0+BN+H] once (H at least 1), for the whole of
+// C_in, as bf16 in shared memory (time-major, channels contiguous, so every
+// tap offset d is the same buffer shifted by d rows). Each phase's run of
+// offsets and the packed block of its first tap come in a table made on the
+// host. Warps then take tasks of (phase, 32 channels, 64 positions):
+// mma.sync m16n8k16 with the taps' weights as A
 // fragments straight from global memory (L2-resident; each weight element
 // is read by one warp of the block, one step ahead of its use) and x as B
 // fragments through ldmatrix, over K = |D(r)| * C_in. Each task adds the
@@ -67,25 +75,38 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const __nv_bfloat16* ro
 
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
-// Bytes of shared memory: the staged input, then the output tile.
+// Bytes of shared memory: the staged input (BN + 2H rows), then the output
+// tile.
 template <typename T>
-size_t smem_bytes(int Cin, int BM, int BN, int u) {
-  return align16((size_t)(BN + 2) * (Cin + 8) * sizeof(__nv_bfloat16)) +
+size_t smem_bytes(int Cin, int BM, int BN, int u, int H) {
+  return align16((size_t)(BN + 2 * H) * (Cin + 8) * sizeof(__nv_bfloat16)) +
          (size_t)BM * (BN * u + 16 / sizeof(T)) * sizeof(T);
 }
 
+constexpr int MAX_U = 32;
+
+// floor(a / u) for u > 0 and any sign of a
+inline int floor_div(int a, int u) { return a >= 0 ? a / u : -((u - 1 - a) / u); }
+
+// Each phase r's run of offsets D(r) = d0[r] .. d0[r] + ntap[r] - 1 and the
+// packed block of its first tap, made on the host and passed by value (the
+// kernel reads it from the parameter bank, no arithmetic per task).
+struct Phases {
+  int d0[MAX_U], ntap[MAX_U], start[MAX_U];
+};
+
 // x: (B, Cin, Tin) T; w: (k, Cout, Cin) bf16 phase-packed taps; bias: (Cout,)
 // fp32; y: (B, Cout, Tin*u) T. Grid (ceil(Tin / BN), Cout / BM, B); BM is a
-// multiple of WM, BN of WN, Cin and Cout of 32.
+// multiple of WM, BN of WN, Cin and Cout of 32; H >= ceil(pad / u).
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 convt_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
              const float* __restrict__ bias, T* __restrict__ y, int Cin,
-             int Cout, int Tin, int u, int pad, int BM, int BN) {
+             int Cout, int Tin, int u, const Phases ph, int H, int BM, int BN) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int VEC = 16 / sizeof(T);
   const int CS = Cin + 8;  // staged row stride in bf16: rows 16 bytes apart mod 128
-  const int rows = BN + 2;
+  const int rows = BN + 2 * H;
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   T* ys = reinterpret_cast<T*>(
       smem_raw + align16((size_t)rows * CS * sizeof(__nv_bfloat16)));
@@ -98,12 +119,12 @@ convt_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
 
-  // x[b, :, m0-1 .. m0+BN] as bf16 pairs of channels: consecutive threads
-  // read consecutive t of two channels and store one 32-bit word
+  // x[b, :, m0-H .. m0+BN+H-1] as bf16 pairs of channels: consecutive
+  // threads read consecutive t of two channels and store one 32-bit word
   const T* xb = x + (size_t)b * Cin * Tin;
   for (int idx = tid; idx < (Cin / 2) * rows; idx += THREADS) {
     const int cp = idx / rows, j = idx - cp * rows;
-    const int t = m0 - 1 + j;
+    const int t = m0 - H + j;
     float v0 = 0.f, v1 = 0.f;
     if (t >= 0 && t < Tin) {
       const T* xp = xb + (size_t)(2 * cp) * Tin + t;
@@ -126,11 +147,9 @@ convt_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     const int r = task / (n_og * n_ng);
     const int rem = task - r * n_og * n_ng;
     const int og = rem / n_ng, ng = rem - og * n_ng;
-    // D(r) is the run d0 .. d0 + ntap - 1 within -1..1; its taps start at
-    // packed block `start`
-    const int d0 = r < pad ? -1 : 0;
-    const int ntap = 1 + (r < pad) + (r >= u - pad);
-    const int start = r + min(r, pad) + max(0, r - (u - pad));
+    // D(r) is the run d0 .. d0 + ntap - 1 within -H..H; its taps start at
+    // packed block `start`, after the taps of phases 0 .. r-1
+    const int d0 = ph.d0[r], ntap = ph.ntap[r], start = ph.start[r];
     const __nv_bfloat16* wr =
         w + ((size_t)start * Cout + o0 + og * WM + g) * Cin + 2 * q;
     const size_t tap_stride = (size_t)Cout * Cin;
@@ -164,9 +183,9 @@ convt_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
       int nti = ti, nkc = kc + 1;
       if (nkc == ksteps) { nkc = 0; ++nti; }
       if (s + 1 < steps) load_a(an, nti, nkc);
-      // B: x rows ng*WN + 1 + d + n, channels kc*16 .. +15
+      // B: x rows ng*WN + H + d + n, channels kc*16 .. +15
       const __nv_bfloat16* xrow =
-          xs + (ng * WN + 1 + d0 + ti + ld_row) * CS + kc * 16 + ld_k;
+          xs + (ng * WN + H + d0 + ti + ld_row) * CS + kc * 16 + ld_k;
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bf[4];
@@ -230,16 +249,26 @@ template <typename T>
 cudaError_t launch_t(const void* x, const void* w, const void* bias, void* y,
                      int B, int Cin, int Cout, int Tin, int u, int pad,
                      cudaStream_t stream) {
+  // the staged halo: ceil(pad / u), at least one row (the H = 1 layout of
+  // every p <= u stage)
+  const int H = pad > u ? (pad + u - 1) / u : 1;
+  Phases ph;
+  for (int r = 0, start = 0; r < u; ++r) {
+    ph.d0[r] = floor_div(r - pad, u);
+    ph.ntap[r] = floor_div(r + pad, u) - ph.d0[r] + 1;
+    ph.start[r] = start;
+    start += ph.ntap[r];
+  }
   int BM = Cout % 64 == 0 ? 64 : 32;
   // widen the block in time until its tasks cover the eight warps
   int BN = WN;
   while (BN < 4 * WN && u * (BM / WM) * (BN / WN) < WARPS && BN < Tin) BN *= 2;
-  while (smem_bytes<T>(Cin, BM, BN, u) > MAX_SMEM) {
+  while (smem_bytes<T>(Cin, BM, BN, u, H) > MAX_SMEM) {
     if (BN > WN) BN /= 2;
     else if (BM > WM) BM /= 2;
     else return cudaErrorInvalidValue;
   }
-  const size_t smem = smem_bytes<T>(Cin, BM, BN, u);
+  const size_t smem = smem_bytes<T>(Cin, BM, BN, u, H);
   cudaError_t err = cudaFuncSetAttribute(
       convt_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -247,7 +276,7 @@ cudaError_t launch_t(const void* x, const void* w, const void* bias, void* y,
   convt_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<const float*>(bias), static_cast<T*>(y), Cin, Cout, Tin, u,
-      pad, BM, BN);
+      ph, H, BM, BN);
   return cudaGetLastError();
 }
 
@@ -255,13 +284,14 @@ cudaError_t launch_t(const void* x, const void* w, const void* bias, void* y,
 
 // x: (B, Cin, Tin) and y: (B, Cout, Tin*u), both bf16 when bf16_io, else
 // fp32; w: (k, Cout, Cin) bf16 as pack_phase_taps lays it out, k = u + 2*pad;
-// bias: (Cout,) fp32. Cin and Cout are multiples of 32.
+// bias: (Cout,) fp32. Cin and Cout are multiples of 32; u <= 32; pad <= 2u
+// (H <= 2).
 POLGEN_API int conv_transpose_upsample(const void* x, const void* w,
                                        const void* bias, void* y, int B,
                                        int Cin, int Cout, int Tin, int u,
                                        int pad, int bf16_io, void* stream) {
   if (Cin % 32 != 0 || Cout % 32 != 0 || Cin < 32 || Cout < 32 || B < 1 ||
-      B > 65535 || Tin < 1 || u < 1 || pad < 0 || pad > u)
+      B > 65535 || Tin < 1 || u < 1 || u > MAX_U || pad < 0 || pad > 2 * u)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   return (int)(bf16_io

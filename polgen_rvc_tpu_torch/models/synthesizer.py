@@ -172,12 +172,14 @@ def synthesizer_infer(params: dict, cfg: SynthesizerConfig, phone, x_mask,
     """Full generator inference.
 
     phone: (B, T, input_dim) content features (already 2x-upsampled);
-    x_mask: (B, 1, T); pitch: (B, T) coarse bins; nsff0: (B, T) Hz;
+    x_mask: (B, 1, T); pitch: (B, T) coarse bins and nsff0: (B, T) Hz (f0
+    models; None for no-f0 models, whose decoder is the plain generator);
     sid: (B,) speaker ids (default 0); eps: (B, inter, >= T) latent noise
     and nsf_noise: (B, >= T*upp) source noise, each sliced to length (None =
-    noise-free). Returns (B, T * upp) in compute_dtype.
+    noise-free; no-f0 models have no source and ignore nsf_noise). Returns
+    (B, T * upp) in compute_dtype.
     """
-    from .nsf import generator_nsf  # nsf imports SynthesizerConfig from here
+    from .nsf import generator, generator_nsf  # nsf imports SynthesizerConfig from here
 
     phone = phone.to(compute_dtype)
     x_mask = x_mask.to(compute_dtype)
@@ -196,4 +198,6 @@ def synthesizer_infer(params: dict, cfg: SynthesizerConfig, phone, x_mask,
     z_p = z_p * x_mask.float()
     z = flow_reverse(params["flow"], cfg, z_p.to(compute_dtype), x_mask, g)
     z = z * x_mask
+    if not cfg.use_f0:
+        return generator(params["dec"], cfg, z, g)
     return generator_nsf(params["dec"], cfg, z, nsff0, g, noise=nsf_noise)

@@ -1,15 +1,18 @@
 """Spectral frontend: STFT magnitude, mel filterbanks, log-mel.
 
-Same numerics as the JAX package's ops/audio.py for the RMVPE frontend:
-reflect center padding, periodic Hann window, HTK mels, log clamp. The
-STFT is ``torch.stft`` (an FFT) where the JAX package multiplies by a DFT
-basis; both are float32 to ~1e-6 relative.
+Same numerics as the JAX package's ops/audio.py for both frontends:
+RMVPE's reflect center padding, periodic Hann window, HTK mels and log
+clamp; FCPE's asymmetric (win - hop)//2 padding without centering, slaney
+mels and the magnitude eps inside the square root. The STFT is
+``torch.stft`` (an FFT) where the JAX package multiplies by a DFT basis;
+both are float32 to ~1e-6 relative.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def hann_window(win_length: int, dtype=np.float32) -> np.ndarray:
@@ -18,14 +21,29 @@ def hann_window(win_length: int, dtype=np.float32) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)).astype(dtype)
 
 
-def stft_magnitude(x, *, n_fft: int, hop_length: int, center: bool = True,
+def stft_magnitude(x, *, n_fft: int, hop_length: int, win_length: int | None = None,
+                   center: bool = True, pad_left: int | None = None,
+                   pad_right: int | None = None, pad_mode: str = "reflect",
                    magnitude_eps: float = 0.0):
-    """|STFT| of (..., T) float32 -> (..., n_fft//2 + 1, N), freq-major."""
+    """|STFT| of (..., T) float32 -> (..., n_fft//2 + 1, N), freq-major.
+
+    A Hann window of win_length (default n_fft), centred in n_fft. center
+    pads n_fft//2 on both sides in pad_mode; explicit pad_left / pad_right
+    replace it (FCPE's asymmetric scheme; "constant" pads zeros).
+    N = 1 + (T + pads - n_fft) // hop_length."""
     lead = x.shape[:-1]
     flat = x.reshape(-1, x.shape[-1]).float()
-    window = torch.from_numpy(hann_window(n_fft)).to(flat.device)
+    win = hann_window(win_length or n_fft)
+    lpad = (n_fft - win.shape[0]) // 2
+    win = np.pad(win, (lpad, n_fft - win.shape[0] - lpad))
+    window = torch.from_numpy(win).to(flat.device)
+    if pad_left is not None or pad_right is not None:
+        pads = (pad_left or 0, pad_right or 0)
+        if any(pads):
+            flat = F.pad(flat[:, None], pads, mode=pad_mode)[:, 0]
+        center = False
     spec = torch.stft(flat, n_fft, hop_length=hop_length, window=window,
-                      center=center, pad_mode="reflect", return_complex=True)
+                      center=center, pad_mode=pad_mode, return_complex=True)
     mag = torch.sqrt(spec.real * spec.real + spec.imag * spec.imag
                      + magnitude_eps)
     return mag.reshape(*lead, *mag.shape[-2:])
@@ -83,10 +101,16 @@ def mel_filterbank(*, sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
 
 
 def log_mel_spectrogram(x, mel_basis: np.ndarray, *, n_fft: int,
-                        hop_length: int, center: bool = True,
-                        clamp: float = 1e-5):
+                        hop_length: int, win_length: int | None = None,
+                        center: bool = True,
+                        pad_left: int | None = None, pad_right: int | None = None,
+                        pad_mode: str = "reflect", clamp: float = 1e-5,
+                        magnitude_eps: float = 0.0):
     """log(clamp(mel @ |STFT|)): (..., T) -> (..., n_mels, N), float32."""
-    mag = stft_magnitude(x, n_fft=n_fft, hop_length=hop_length, center=center)
+    mag = stft_magnitude(x, n_fft=n_fft, hop_length=hop_length,
+                         win_length=win_length, center=center,
+                         pad_left=pad_left, pad_right=pad_right,
+                         pad_mode=pad_mode, magnitude_eps=magnitude_eps)
     basis = torch.from_numpy(np.asarray(mel_basis, np.float32)).to(mag.device)
     mel = torch.matmul(basis, mag)
     return torch.log(torch.clamp(mel, min=clamp))

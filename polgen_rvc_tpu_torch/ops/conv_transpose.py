@@ -3,17 +3,19 @@
 
 Replaces polgen_rvc_tpu/ops/pallas_convtranspose.py:conv_transpose1d_pallas.
 On a CUDA tensor ``conv_transpose1d`` launches the sm_90a kernel of
-csrc/conv_transpose.cu (all four upsample stages of the 48 kHz config:
-u = 12, 10, 2, 2); bound and design are in the kernel source. On a CPU
+csrc/conv_transpose.cu (every upsample stage of the published configs:
+u = 12, 10, 8, 6, 4, 2); bound and design are in the kernel source. On a CPU
 tensor it runs ``conv_transpose1d_plain``. The kernel reads its weights
 as ``pack_phase_taps`` lays them out (bf16), made once when the weights
 load and passed as ``taps``.
 
 Output sample t = m*u + r draws on input m + d only for the offsets d of
-``phase_taps(u, padding)[r]``: d = 0 always, d = -1 when r < padding,
-d = +1 when r >= u - padding (padding <= u keeps d within -1..1).
-``pack_phase_taps`` lays out exactly those weight taps, phase by phase,
-with no zero blocks. Working precision: bf16 operands, fp32 accumulation
+``phase_taps(u, padding)[r]``: the run floor((r - p)/u) .. floor((r + p)/u),
+whose weight taps r + p - d*u lie inside the kernel. Every offset lies
+within -H..H for the halo H = ceil(p/u); the kernel stages that halo and
+takes H <= 2, which holds every published RVC config (v1 32 kHz's
+u = 4, k = 16, p = 6 has H = 2; the rest H = 1). ``pack_phase_taps`` lays
+out exactly those weight taps, phase by phase, with no zero blocks. Working precision: bf16 operands, fp32 accumulation
 and bias, the result rounded once to x's dtype.
 """
 
@@ -40,11 +42,16 @@ def conv_transpose1d_plain(x, w, b, *, stride: int, padding: int,
     return y.to(x.dtype)
 
 
+MAX_HALO = 2
+MAX_STRIDE = 32  # the kernel's phase table
+
+
 def phase_taps(stride: int, padding: int) -> list[list[int]]:
     """For each phase r of the output, the input offsets d (ascending) whose
-    weight tap r + padding - d*stride lies inside the kernel."""
-    return [[d for d in (-1, 0, 1)
-             if d == 0 or (d < 0 and r < padding) or (d > 0 and r >= stride - padding)]
+    weight tap r + padding - d*stride lies inside the kernel (k = stride +
+    2*padding): the run floor((r - padding)/stride) .. floor((r +
+    padding)/stride)."""
+    return [list(range((r - padding) // stride, (r + padding) // stride + 1))
             for r in range(stride)]
 
 
@@ -52,10 +59,11 @@ def _check_geometry(k: int, stride: int, padding: int):
     if k - 2 * padding != stride:
         raise ValueError(f"conv_transpose1d: k={k}, padding={padding} does "
                          f"not give T_out = T_in * {stride}")
-    if not 0 <= padding <= stride:
+    if not 0 <= padding <= MAX_HALO * stride:
         raise ValueError(f"conv_transpose1d: padding={padding} outside "
-                         f"0..{stride} (k={k} > 3*stride) needs taps beyond "
-                         "input offsets -1..1")
+                         f"0..{MAX_HALO * stride} (k={k} > {2 * MAX_HALO + 1}"
+                         f"*stride) needs taps beyond input offsets "
+                         f"-{MAX_HALO}..{MAX_HALO}")
 
 
 def pack_phase_taps(w, stride: int, padding: int):
@@ -88,6 +96,9 @@ def conv_transpose1d(x, w, b, *, stride: int, padding: int, taps=None):
     if c_in % 32 or c_out % 32:
         raise ValueError(f"conv_transpose1d: C_in={c_in}, C_out={c_out} must "
                          "be multiples of 32")
+    if stride > MAX_STRIDE:
+        raise ValueError(f"conv_transpose1d: stride {stride} above the kernel's "
+                         f"{MAX_STRIDE}")
     if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
         raise ValueError(f"conv_transpose1d: x is {x.dtype}, the kernel takes "
                          "contiguous float32 or bfloat16")

@@ -1,14 +1,14 @@
 """The conversion engine: the port of polgen_rvc_tpu/pipeline/engine.py's
-``VoiceConverter.convert`` on the rmvpe+ and mangio-crepe F0 paths, in
-eager PyTorch on one device.
+``VoiceConverter.convert`` on the rmvpe+, mangio-crepe and fcpe F0 paths
+and for no-f0 models, in eager PyTorch on one device.
 
 Per song: host high-pass, reflect pad and int16 quantize (one upload);
-quiet-point chunk planning; one full-signal F0 pass: RMVPE (fp32), or
-CREPE (conv operands in the compute dtype, decode in fp32). Per
-batch of ``chunk_batch`` chunks, padded to that batch's own bucket: HuBERT
--> top-k retrieval blend -> 2x frame repeat -> protect mix -> synthesizer,
-then the pad trim. Last, the RMS-envelope gain, per-chunk int16 pack and
-the final normalize.
+quiet-point chunk planning; one full-signal F0 pass (f0 models only):
+RMVPE (fp32), CREPE (conv operands in the compute dtype, decode in fp32)
+or FCPE (fp32). Per batch of ``chunk_batch`` chunks, padded to that
+batch's own bucket: HuBERT -> top-k retrieval blend -> 2x frame repeat ->
+protect mix (f0 models) -> synthesizer, then the pad trim. Last, the
+RMS-envelope gain, per-chunk int16 pack and the final normalize.
 
 Semantics follow the JAX engine: the same buckets (``_batch_geometry``),
 row assembly (``_assemble_rows``), masks and trim, and noise drawn at the
@@ -38,6 +38,7 @@ from ..retrieval.topk import retrieval_blend
 from .chunking import plan_chunks
 from .config import ConversionOptions, EngineConfig
 from .crepe_method import crepe_f0
+from .fcpe_method import fcpe_f0, fcpe_f0_device
 from .output import change_rms, finalize_int16, pack_int16, rows_to_audio
 
 # (seed, chunk id, latent shape (C, frames), nsf length, device)
@@ -57,19 +58,21 @@ def torch_noise(seed: int, chunk_id: int, lat_shape: tuple, nsf_len: int,
 
 class VoiceConverter:
     """Voice conversion over one (synthesizer, HuBERT, RMVPE, index) model
-    set, plus CREPE weights for the mangio-crepe method. Parameters arrive
-    as numpy dictionaries (the convert/ builders' output) and live on
-    ``device`` in float32, with the kernels' packed weight layouts and the
-    CREPE convs' compute-dtype operands beside them."""
+    set, plus CREPE weights for the mangio-crepe method and FCPE weights
+    and config for fcpe. A no-f0 model (``synth_cfg.use_f0`` false) runs no
+    F0 pass and may come without RMVPE weights. Parameters arrive as numpy
+    dictionaries (the convert/ builders' output) and live on ``device`` in
+    float32, with the kernels' packed weight layouts and the CREPE convs'
+    compute-dtype operands beside them."""
 
     def __init__(self, *, synth_cfg: SynthesizerConfig, synth_params: dict,
                  hubert_cfg: HubertConfig, hubert_params: dict,
-                 rmvpe_params: dict, index_bank: Optional[np.ndarray] = None,
+                 rmvpe_params: Optional[dict] = None,
+                 index_bank: Optional[np.ndarray] = None,
                  engine: EngineConfig = EngineConfig(), device=None,
                  noise_provider: NoiseProvider = torch_noise,
-                 crepe_params: Optional[dict] = None):
-        if not synth_cfg.use_f0:
-            raise NotImplementedError("the no-f0 generator is not ported yet")
+                 crepe_params: Optional[dict] = None,
+                 fcpe_params: Optional[dict] = None, fcpe_cfg=None):
         self.device = resolve_device(device)
         self.synth_cfg = synth_cfg
         self.hubert_cfg = hubert_cfg
@@ -82,11 +85,15 @@ class VoiceConverter:
         # the kernels' weight layouts are made here, once, not per launch
         self.synth_params = {**sp, "dec": pack_decoder_weights(sp["dec"], synth_cfg)}
         self.hubert_params = params_to_torch(hubert_params, self.device)
-        self.rmvpe_params = pack_rmvpe_weights(params_to_torch(rmvpe_params, self.device))
+        self.rmvpe_params = (None if rmvpe_params is None else pack_rmvpe_weights(
+            params_to_torch(rmvpe_params, self.device)))
         self.index_bank = (None if index_bank is None
                            else params_to_torch(np.asarray(index_bank), self.device))
         self.crepe_params = (None if crepe_params is None else pack_crepe_weights(
             params_to_torch(crepe_params, self.device), self.compute_dtype))
+        self.fcpe_params = (None if fcpe_params is None
+                            else params_to_torch(fcpe_params, self.device))
+        self.fcpe_cfg = fcpe_cfg
 
     # ------------------------------------------------------------------
     # geometry (identical to the JAX engine's)
@@ -145,7 +152,8 @@ class VoiceConverter:
                    padded_len: Optional[int] = None):
         """(bucket,) float32 signal, its first padded_len samples valid ->
         (coarse pitch (P,), pitchf (P,)) with P = bucket // 160 + 1 frames.
-        mangio-crepe needs padded_len; rmvpe+ reads the whole bucket."""
+        mangio-crepe and fcpe need padded_len; rmvpe+ reads the whole
+        bucket."""
         if opts.f0_method == "mangio-crepe":
             if self.crepe_params is None:
                 raise RuntimeError(
@@ -156,9 +164,15 @@ class VoiceConverter:
                             window=self.engine.window,
                             compute_dtype=self.compute_dtype)
         if opts.f0_method == "fcpe":
-            raise NotImplementedError("f0 method 'fcpe' is not ported yet")
+            if self.fcpe_params is None or self.fcpe_cfg is None:
+                raise RuntimeError("fcpe weights not loaded (assets/predictors/fcpe.pt)")
+            if padded_len is None:
+                raise ValueError("fcpe needs the padded signal length")
+            return self._fcpe_f0(buf, opts, padded_len)
         if opts.f0_method not in ("rmvpe+", "rmvpe"):
             raise ValueError(f"unknown f0 method: {opts.f0_method}")
+        if self.rmvpe_params is None:
+            raise RuntimeError("rmvpe weights not loaded")
         mel, n = pad_frames_to_32(rmvpe_mel(buf[None].float()))
         sal = rmvpe_salience(self.rmvpe_params, mel)[:, :n]
         f0_raw = salience_to_f0(sal, 0.03)
@@ -167,6 +181,25 @@ class VoiceConverter:
         pitchf = f0 * float(np.float32(2.0 ** (opts.pitch / 12.0)))
         pitch = coarse_f0(pitchf, opts.f0_min, opts.f0_max)
         return pitch[0], pitchf[0]
+
+    def _fcpe_f0(self, buf, opts: ConversionOptions, padded_len: int):
+        """fcpe: at an FCPE hop equal to the engine's window, the JAX
+        package's device path (the mel over the whole zero-tailed bucket,
+        padded_len // hop + 1 frames as n_valid, the decode, the resize and
+        gap-fill onto padded_len // window frames); at another hop, the host
+        path on buf[:padded_len]. Then the pitch shift and coarse bins."""
+        cfg, window = self.fcpe_cfg, self.engine.window
+        p_len = padded_len // window
+        size = buf.shape[0] // 160 + 1
+        if cfg.hop_size == window:
+            f0 = fcpe_f0_device(self.fcpe_params, cfg, buf, padded_len, p_len)
+            pitchf = f0 * float(np.float32(2.0 ** (opts.pitch / 12.0)))
+        else:
+            f0 = fcpe_f0(self.fcpe_params, cfg, buf[:padded_len], p_len)
+            f0 = np.pad(f0, (0, max(size - p_len, 0)))[:size]
+            pitchf = torch.from_numpy(
+                (f0 * (2.0 ** (opts.pitch / 12.0))).astype(np.float32)).to(buf.device)
+        return coarse_f0(pitchf, opts.f0_min, opts.f0_max), pitchf
 
     # ------------------------------------------------------------------
     # one chunk batch
@@ -190,12 +223,14 @@ class VoiceConverter:
         wav = torch.where(span[None, :] < samp_lens[:, None], wav,
                           torch.zeros_like(wav))
         frame_mask = put(rows["mask"])
-        cols = put(rows["starts"])[:, None] + torch.arange(p_len, device=dev)[None, :]
-        pitch = torch.cat([pitch_full, pitch_full.new_ones(p_len)])[cols]
-        pitchf = torch.cat([pitchf_full, pitchf_full.new_zeros(p_len)])[cols]
-        valid = frame_mask > 0
-        pitch = torch.where(valid, pitch, torch.ones_like(pitch))
-        pitchf = torch.where(valid, pitchf, torch.zeros_like(pitchf))
+        pitch = pitchf = None
+        if pitch_full is not None:
+            cols = put(rows["starts"])[:, None] + torch.arange(p_len, device=dev)[None, :]
+            pitch = torch.cat([pitch_full, pitch_full.new_ones(p_len)])[cols]
+            pitchf = torch.cat([pitchf_full, pitchf_full.new_zeros(p_len)])[cols]
+            valid = frame_mask > 0
+            pitch = torch.where(valid, pitch, torch.ones_like(pitch))
+            pitchf = torch.where(valid, pitchf, torch.zeros_like(pitchf))
 
         v1 = self.version == "v1"
         n_layers = self.hubert_cfg.n_layers
@@ -217,6 +252,8 @@ class VoiceConverter:
             pff = torch.where(pitchf > 0, 1.0, float(opts.protect)).to(feats.dtype)[..., None]
             feats = feats * pff + feats0 * (1.0 - pff)
 
+        # a no-f0 model draws the source noise too and leaves it unused, as
+        # the JAX engine splits and drops its source key
         nf = self._noise_frames()
         upp = self.synth_cfg.upp
         draws = [self.noise_provider(opts.seed, int(ci),
@@ -255,10 +292,13 @@ class VoiceConverter:
         )
         plan = plan_chunks(audio, eng)
         buf = torch.from_numpy(qbuf).to(dev).float() * float(inv_scale)
-        pitch_full, pitchf_full = self.compute_f0(buf, opts, padded_len)
+        use_f0 = self.synth_cfg.use_f0
+        pitch_full = pitchf_full = None
+        if use_f0:
+            pitch_full, pitchf_full = self.compute_f0(buf, opts, padded_len)
 
         use_index = self.index_bank is not None and opts.index_rate > 0
-        use_protect = opts.protect < 0.5
+        use_protect = use_f0 and opts.protect < 0.5
         upp = self.synth_cfg.upp
         t_pad_tgt = self.tgt_sr * eng.x_pad
         segments = []

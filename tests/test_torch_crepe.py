@@ -266,11 +266,11 @@ def test_convert_mangio_crepe_matches_jax_end_to_end(tiny_model):
 
 
 def test_f0_method_guards(tiny_model):
-    """fcpe is not ported; mangio-crepe without CREPE weights raises."""
+    """fcpe and mangio-crepe without their weights raise."""
     vc = VoiceConverter(**dict(zip(MODEL_NAMES, tiny_model)),
                         engine=EngineConfig(**SMOKE_ENGINE), device="cpu")
     song = _bench_song(1.0)
-    with pytest.raises(NotImplementedError, match="fcpe"):
+    with pytest.raises(RuntimeError, match="fcpe weights not loaded"):
         vc.convert(song, ConversionOptions(f0_method="fcpe"))
     with pytest.raises(RuntimeError, match="crepe weights not loaded"):
         vc.convert(song, ConversionOptions(f0_method="mangio-crepe"))

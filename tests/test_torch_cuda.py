@@ -157,10 +157,25 @@ def test_kernel_wrappers_reject_unpacked_weights(dev):
     (10, 16, 32, 32, 1, torch.bfloat16),
     (8, 12, 32, 32, 33, torch.bfloat16),
     (2, 4, 128, 64, 257, torch.bfloat16),
+    # halo 2 (padding > stride): v1 32 kHz's second stage, u = 4, k = 16,
+    # offsets -2..2, four taps a phase; and u = 2, k = 8
+    (4, 16, 256, 128, 1, torch.float32),
+    (4, 16, 256, 128, 129, torch.float32),
+    (4, 16, 256, 128, 257, torch.float32),
+    (4, 16, 256, 128, 1, torch.bfloat16),
+    (4, 16, 256, 128, 129, torch.bfloat16),
+    (4, 16, 256, 128, 257, torch.bfloat16),
+    (2, 8, 64, 32, 1, torch.float32),
+    (2, 8, 64, 32, 129, torch.float32),
+    (2, 8, 64, 32, 257, torch.float32),
+    (2, 8, 64, 32, 1, torch.bfloat16),
+    (2, 8, 64, 32, 129, torch.bfloat16),
+    (2, 8, 64, 32, 257, torch.bfloat16),
 ])
 def test_conv_transpose_kernel(dev, u, k, c_in, c_out, t, dtype):
-    """Every tap count a phase can have, ragged tiles, rows of T_out off the
-    16-byte vector (scalar stores), fp32 and bf16 in and out."""
+    """Every tap count a phase can have, halos of 1 and 2, ragged tiles,
+    rows of T_out off the 16-byte vector (scalar stores), fp32 and bf16 in
+    and out."""
     rng = np.random.default_rng(u * 1000 + k * 10 + t)
     pad = (k - u) // 2
     x = _t(rng.standard_normal((2, c_in, t)) * 0.5, dev).to(dtype)
@@ -180,6 +195,58 @@ def test_conv_transpose_kernel(dev, u, k, c_in, c_out, t, dtype):
         # one bf16 rounding of the fp32 result, plus fp32 summation order
         err = (got.float() - ref).abs()
         assert bool((err <= 2.0 ** -8 * ref.abs() + 1e-4 * ref.abs().max()).all())
+
+
+def test_conv_transpose_refuses_a_halo_of_three(dev):
+    """padding > 2 * stride (u = 2, k = 12, padding 5: offsets -3..3) is
+    refused on the card as on the CPU, by the packing and the wrapper."""
+    x = torch.zeros(1, 32, 16, device=dev)
+    w = torch.zeros(32, 32, 12, device=dev)
+    with pytest.raises(ValueError, match="beyond"):
+        ct.pack_phase_taps(w.to(torch.bfloat16), 2, 5)
+    with pytest.raises(ValueError, match="beyond"):
+        ct.conv_transpose1d(x, w, None, stride=2, padding=5,
+                            taps=torch.zeros(12, 32, 32, device=dev,
+                                             dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [33, 300])
+def test_padded_sixteen_wide_stage(dev, t, dtype):
+    """A v1 decoder's last stage (32 -> 16 channels, u = 2, k = 4) as the
+    converter loads it, padded to 32 (models/nsf.py:pad_decoder_stages):
+    the conv-transpose and resblock-group kernels on the padded weights
+    give the unpadded twins' channels and exact zeros in the padding.
+    Tolerances as test_conv_transpose_kernel and test_resblock_group_kernel."""
+    from types import SimpleNamespace
+
+    from polgen_rvc_tpu_torch.models.nsf import pad_decoder_stages
+
+    rng = np.random.default_rng(16 + t)
+    params, ks, ds = _resblock_params(rng, 16, dev)
+    dec = {"ups": [{"w": _t(rng.standard_normal((32, 16, 4)) / np.sqrt(128), dev),
+                    "b": _t(rng.standard_normal(16) * 0.02, dev)}],
+           "resblocks": params,
+           "conv_post": {"w": _t(rng.standard_normal((1, 16, 7)) * 0.1, dev), "b": None}}
+    padded = pad_decoder_stages(dec, SimpleNamespace(resblock_kernel_sizes=ks))
+    up = padded["ups"][0]
+    assert up["w"].shape == (32, 32, 4) and padded["conv_post"]["w"].shape == (1, 32, 7)
+    x = _t(rng.standard_normal((2, 32, t)) * 0.5, dev).to(dtype)
+    taps = ct.pack_phase_taps(up["w"].to(torch.bfloat16), 2, 1)
+    y, n = _launched(ct.conv_transpose1d, lambda: ct.conv_transpose1d(
+        x, up["w"], up["b"], stride=2, padding=1, taps=taps))
+    ref = ct.conv_transpose1d_plain(x.float(), dec["ups"][0]["w"], dec["ups"][0]["b"],
+                                    stride=2, padding=1, operand_dtype=torch.bfloat16)
+    assert n == 1 and y.shape == (2, 32, 2 * t) and bool((y[:, 16:] == 0).all())
+    err = (y[:, :16].float() - ref).abs()
+    assert bool((err <= 2.0 ** -8 * ref.abs() + 1e-4 * ref.abs().max() + 1e-5).all())
+    packed = rg.pack_resblock_weights(padded["resblocks"])
+    got, n = _launched(rg.fused_resblock_group,
+                       lambda: rg.fused_resblock_group(y, packed, ks, ds))
+    ref = rg.resblock_group_plain(y[:, :16], params, ks, ds, operand_dtype=torch.bfloat16)
+    assert n == 9 and got.dtype == dtype and bool((got[:, 16:] == 0).all())
+    err = float((got[:, :16].float() - ref.float()).abs().max())
+    assert err <= 1e-2 * float(ref.float().abs().max())
 
 
 def test_conv_transpose_rejects_channels_off_the_tile(dev):

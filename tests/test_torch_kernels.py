@@ -207,17 +207,22 @@ def _phase_by_phase(x, taps, b, u, pad):
     """y from the phase-packed taps as the CUDA kernel decomposes it: phase
     r sums, over its offsets d in phase_taps, the packed block times x
     shifted by d (zero outside [0, T)); the phases interleave at stride u.
-    Phase r's blocks start where the kernel's closed form puts them."""
+    Phase r's blocks start where the kernel's loop puts them, and its
+    offsets are the kernel's run floor((r - pad)/u) .. floor((r + pad)/u),
+    within the staged halo -H..H."""
     bsz, _, t = x.shape
-    xp = F.pad(x.float(), (1, 1))  # x[m + d] is xp[m + 1 + d]
+    halo = max(1, -(-pad // u))
+    xp = F.pad(x.float(), (halo, halo))  # x[m + d] is xp[m + halo + d]
     y = torch.empty(bsz, taps.shape[1], t, u)
     blk = 0
     for r, ds in enumerate(phase_taps(u, pad)):
-        assert blk == r + min(r, pad) + max(0, r - (u - pad))
+        assert blk == sum((rr + pad) // u - (rr - pad) // u + 1 for rr in range(r))
+        assert ds == list(range((r - pad) // u, (r + pad) // u + 1))
+        assert -halo <= ds[0] and ds[-1] <= halo
         acc = b[None, :, None].expand(bsz, -1, t)
         for d in ds:
             acc = acc + torch.einsum("oc,bct->bot", taps[blk].float(),
-                                     xp[:, :, 1 + d:1 + d + t])
+                                     xp[:, :, halo + d:halo + d + t])
             blk += 1
         y[..., r] = acc
     assert blk == taps.shape[0]
@@ -225,12 +230,15 @@ def _phase_by_phase(x, taps, b, u, pad):
 
 
 @pytest.mark.parametrize("k,u,c_in,c_out", [(24, 12, 64, 32), (16, 10, 32, 32),
-                                            (4, 2, 32, 16)])
+                                            (4, 2, 32, 16), (16, 4, 32, 32),
+                                            (8, 2, 32, 32)])
 def test_phase_packed_taps_give_the_transposed_conv(k, u, c_in, c_out):
     """The layout the CUDA kernel reads: only the taps of each phase's
     offsets, no zero block, and phase by phase they give the transposed
     conv: 48 kHz's first stage (u = 12, k = 24), 40 kHz's second (u = 10,
-    k = 16: phases 3..6 have one tap) and u = 2, k = 4, at narrow widths."""
+    k = 16: phases 3..6 have one tap), u = 2, k = 4, and the halo-2
+    geometries (padding > stride): v1 32 kHz's second stage (u = 4, k = 16,
+    four taps a phase, offsets -2..2) and u = 2, k = 8, at narrow widths."""
     rng = np.random.default_rng(100 + k)
     pad = (k - u) // 2
     x = (rng.standard_normal((2, c_in, 37)) * 0.5).astype(np.float32)
@@ -240,10 +248,10 @@ def test_phase_packed_taps_give_the_transposed_conv(k, u, c_in, c_out):
 
     n_taps = [len(ds) for ds in phase_taps(u, pad)]
     assert sum(n_taps) == k
-    if k == 16:
+    if (k, u) == (16, 10):
         assert n_taps == [2, 2, 2, 1, 1, 1, 1, 2, 2, 2]
     else:
-        assert n_taps == [2] * u
+        assert n_taps == [k // u] * u
     taps = pack_phase_taps(wt, u, pad)
     assert taps.shape == (k, c_out, c_in)
     assert bool((taps.abs().amax(dim=(1, 2)) > 0).all())  # no all-zero block
@@ -253,24 +261,32 @@ def test_phase_packed_taps_give_the_transposed_conv(k, u, c_in, c_out):
     ref = conv_transpose1d_plain(xt, wt, bt, stride=u, padding=pad)
     np.testing.assert_allclose(emu.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
 
-    # bf16-rounded operands both sides: fp32 summation order only (1e-4)
+    # bf16-rounded operands both sides: fp32 summation order only (1e-4).
+    # Against the Pallas kernel where padding <= stride; past it the Pallas
+    # kernel drops the taps beyond offsets -1..1 (a fault of the reference),
+    # so there against JAX's XLA transposed conv of the same rounded operands
     emu = _phase_by_phase(xt.to(torch.bfloat16), pack_phase_taps(
         wt.to(torch.bfloat16), u, pad), bt, u, pad)
-    pallas = conv_transpose1d_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
-                                     stride=u, padding=pad, time_tile=16,
-                                     interpret=True)
-    np.testing.assert_allclose(emu.numpy(), np.asarray(pallas), rtol=1e-4, atol=1e-5)
+    if pad <= u:
+        ref = conv_transpose1d_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                      stride=u, padding=pad, time_tile=16,
+                                      interpret=True)
+    else:
+        xr, wr = (jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32) for a in (x, w))
+        ref = jax_convt(xr, wr, jnp.asarray(b), stride=u, padding=pad)
+    np.testing.assert_allclose(emu.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
 
 
 def test_conv_transpose_refuses_padding_beyond_the_stride():
-    """padding > stride (k > 3 * stride) would need input offsets beyond
-    -1..1, which the packed layout and the kernel do not hold: both the
-    packing and the wrapper refuse it rather than drop taps."""
-    x, w = torch.zeros(1, 32, 5), torch.zeros(32, 32, 8)  # k 8, u 2, pad 3
+    """padding > 2 * stride (k > 5 * stride, halo H = ceil(p/u) = 3) would
+    need input offsets beyond -2..2, which the packed layout and the kernel
+    do not hold: both the packing and the wrapper refuse it rather than
+    drop taps."""
+    x, w = torch.zeros(1, 32, 5), torch.zeros(32, 32, 12)  # k 12, u 2, pad 5
     with pytest.raises(ValueError, match="beyond"):
-        pack_phase_taps(w, 2, 3)
+        pack_phase_taps(w, 2, 5)
     with pytest.raises(ValueError, match="beyond"):
-        conv_transpose1d(x, w, None, stride=2, padding=3)
+        conv_transpose1d(x, w, None, stride=2, padding=5)
 
 
 def _attn_params(rng, c, dk, w):

@@ -207,13 +207,13 @@ def test_kernel_wrappers_import_and_run_plain_without_nvcc(monkeypatch):
 
 
 @pytest.mark.parametrize("method,error,match", [
-    ("fcpe", NotImplementedError, "'fcpe' is not ported yet"),
+    ("fcpe", RuntimeError, "fcpe weights not loaded"),
     ("harvest", ValueError, "unknown f0 method: harvest"),
     ("RMVPE+", ValueError, "unknown f0 method: RMVPE\\+"),
 ])
 def test_f0_method_names_outside_the_port(port_vc, method, error, match):
-    """fcpe, which the JAX package has, is not ported yet; a name the JAX
-    package rejects (f0_dispatch: "unknown f0 method") raises ValueError
-    here too."""
+    """fcpe on a converter built without FCPE weights raises as the JAX
+    package's fcpe_f0 does; a name the JAX package rejects (f0_dispatch:
+    "unknown f0 method") raises ValueError here too."""
     with pytest.raises(error, match=match):
         port_vc.convert(_bench_song(1.0), ConversionOptions(f0_method=method))
