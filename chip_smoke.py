@@ -195,6 +195,21 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_once(fn):
+    """(fn(), its device time in ms) for one call, no warm-up: for the slow
+    plain twins (the Viterbi's step loop), whose one call is the reference
+    the kernel is held to."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -222,14 +237,15 @@ def profile_convert(vc, song, opts) -> dict:
 
 
 def profile_call(fn) -> dict:
-    """fn() once under torch.profiler: wall time, kernel time, idle share
-    and the kernels by device time."""
+    """fn() once under torch.profiler, tracing the device only (host ops
+    untraced, which keeps the tracing cost off the host): wall time, kernel
+    time, idle share and the kernels by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -244,6 +260,8 @@ def profile_call(fn) -> dict:
         kernels.append({"name": evt.key[:80], "calls": evt.count, "ms": us / 1e3})
     kernels.sort(key=lambda k: -k["ms"])
     busy_ms = sum(k["ms"] for k in kernels)
+    if not busy_ms > 0:
+        raise AssertionError("the profiler saw no device time")
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
             "device_idle_share": (1.0 - busy_ms / (wall * 1e3)) if busy_ms else None,
             "kernels": kernels}
@@ -665,7 +683,7 @@ def check_kernels(calls: dict) -> dict:
         log_obs, n = e["args"]
         t_len, bins = log_obs.shape
         got = vt.viterbi_path(log_obs, n)
-        ref = vt.viterbi_path_plain(log_obs, n)
+        ref, plain_ms = timed_once(lambda: vt.viterbi_path_plain(log_obs, n))
         mismatches = int((got != ref).sum())
         # per step and bin: 23 candidate adds and compares, the teleport
         # compare, + obs, the block max's compare and the renorm subtract,
@@ -682,8 +700,7 @@ def check_kernels(calls: dict) -> dict:
                  "walk_ms": cuda_ms(lambda: vt._walk(rows, back, maps, t_len, n))}
         split["forward_us_per_step"] = 1e3 * split["forward_ms"] / max(steps, 1)
         add("viterbi", float((got - ref).abs().max()), 0.0, ref,
-            cuda_ms(lambda: vt.viterbi_path(log_obs, n)),
-            cuda_ms(lambda: vt.viterbi_path_plain(log_obs, n), reps=1),
+            cuda_ms(lambda: vt.viterbi_path(log_obs, n)), plain_ms,
             None, 50.0 * steps * bins, min(n, t_len) * bins * 4 + t_len * 4,
             torch.float32, e["count"], [t_len, bins, n],
             {"path_mismatches": mismatches, **split})
@@ -691,10 +708,10 @@ def check_kernels(calls: dict) -> dict:
         # again on a random-walk track with all-tie frames (not a launch of
         # the path, so it adds to no per-convert total)
         walk = structured_log_obs(t_len, n).to(log_obs.device)
-        got, ref = vt.viterbi_path(walk, n), vt.viterbi_path_plain(walk, n)
+        got = vt.viterbi_path(walk, n)
+        ref, plain_ms = timed_once(lambda: vt.viterbi_path_plain(walk, n))
         add("viterbi", float((got - ref).abs().max()), 0.0, ref,
-            cuda_ms(lambda: vt.viterbi_path(walk, n)),
-            cuda_ms(lambda: vt.viterbi_path_plain(walk, n), reps=1), None, 0.0, 0.0,
+            cuda_ms(lambda: vt.viterbi_path(walk, n)), plain_ms, None, 0.0, 0.0,
             torch.float32, 0, [t_len, bins, n, "random walk"],
             {"path_mismatches": int((got != ref).sum()),
              "distinct_bins": int(ref.unique().numel())})
