@@ -30,26 +30,11 @@ exit code != 0):
                unet_chain (RMVPE's) does not; then its
                profile (crepe_profile), with each CREPE layer's conv and
                epilogue timed alone on one 2,048-frame slab.
-  fcpe:        the same with the full FCPE (12 layers x 512 channels,
-               with_fcpe=True) and f0_method="fcpe": the resblock group 36
-               times, conv-transpose 4, band attention, neither unet_chain
-               nor viterbi; then its profile (fcpe_profile), with the FCPE
-               pass's share of the convert's kernel time.
-  nof0:        the 48 kHz v2 model built with use_f0=False: the same
-               launch counts, and no F0 pass runs.
-  v1_32k:      a v1 32 kHz f0 model of RVC-Project's configs/v1/32k.json
-               shape (upsample rates 10, 4, 2, 2, 2, kernels 16, 16, 4, 4,
-               4 from 512 channels; HuBERT's final_proj into the 256-wide
-               content input), built by patching the port's
-               convert.synthetic.V2_CONFIGS[32000] inside this script, on
-               rmvpe+: the resblock group 45 times (5 stages x 9 pairs),
-               conv-transpose 5, unet_chain 112. Its second stage has
-               padding 6 > stride 4 (conv-transpose offsets -2..2) and its
-               fifth is 16 wide, padded to 32 at load.
-  3. kernels:  every kernel's wrapper again on the very inputs its path
-               gives it (recorded during one more, untimed convert of each
-               path), held against its plain PyTorch twin on the same inputs
-               in the kernel's working precision, with the tolerance
+  3. kernels:  right after the crepe path, every kernel's wrapper again
+               on the very inputs its path gives it (recorded during one
+               more, untimed convert of the main and crepe paths), held
+               against its plain PyTorch twin on the same inputs in the
+               kernel's working precision, with the tolerance
                printed (the Viterbi path exactly), and one launch of each
                conv kernel against its plain twin at fp32 summation order
                (the resblock group: one conv pair; the U-Net chain: one
@@ -70,6 +55,22 @@ exit code != 0):
                CTAs and those that exit early (rows all past the length),
                and a flash-SDPA yardstick on the same q, k, v over each
                row's valid length (no relative terms).
+  fcpe:        as the crepe path, with the full FCPE (12 layers x 512 channels,
+               with_fcpe=True) and f0_method="fcpe": the resblock group 36
+               times, conv-transpose 4, band attention, neither unet_chain
+               nor viterbi; then its profile (fcpe_profile), with the FCPE
+               pass's share of the convert's kernel time.
+  nof0:        the 48 kHz v2 model built with use_f0=False: the same
+               launch counts, and no F0 pass runs.
+  v1_32k:      a v1 32 kHz f0 model of RVC-Project's configs/v1/32k.json
+               shape (upsample rates 10, 4, 2, 2, 2, kernels 16, 16, 4, 4,
+               4 from 512 channels; HuBERT's final_proj into the 256-wide
+               content input; the port's factory builds version "v1" at
+               those published rates), on rmvpe+: the resblock group 45
+               times (5 stages x 9 pairs), conv-transpose 5, unet_chain
+               112. Its second stage has padding 6 > stride 4
+               (conv-transpose offsets -2..2) and its fifth is 16 wide,
+               padded to 32 at load.
   kernels_v1_32k: the conv-transpose and resblock-group kernels the same
                way on the v1_32k path's inputs (u = 4, k = 16, padding 6;
                the padded 16 -> 32 stage), whose padded channels must come
@@ -104,8 +105,6 @@ SONG_SECONDS = 60.0
 BENCH_OPTS = dict(index_rate=0.5, protect=0.33, volume_envelope=0.25)
 BENCH_TIERS = dict(x_pad=1, x_query=6, x_center=30, x_max=32, chunk_batch=2,
                    bucket_step_s=4)
-# RVC-Project configs/v1/32k.json: the decoder the v1_32k path runs
-V1_32K = dict(spec=513, up_rates=[10, 4, 2, 2, 2], up_k=[16, 16, 4, 4, 4])
 
 
 T_START = time.perf_counter()
@@ -195,19 +194,19 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timed_once(fn):
-    """(fn(), its device time in ms) for one call, no warm-up: for the slow
-    plain twins (the Viterbi's step loop), whose one call is the reference
-    the kernel is held to."""
+def timed_once(fn) -> float:
+    """Device time in ms of one call of fn(): for the slow plain twins (the
+    Viterbi's step loop), timed on the call after the one that gave the
+    reference, so warm as cuda_ms(fn, reps=1) times it."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    out = fn()
+    fn()
     end.record()
     torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
+    return start.elapsed_time(end)
 
 
 def nbytes(*tensors) -> int:
@@ -683,7 +682,8 @@ def check_kernels(calls: dict) -> dict:
         log_obs, n = e["args"]
         t_len, bins = log_obs.shape
         got = vt.viterbi_path(log_obs, n)
-        ref, plain_ms = timed_once(lambda: vt.viterbi_path_plain(log_obs, n))
+        ref = vt.viterbi_path_plain(log_obs, n)
+        plain_ms = timed_once(lambda: vt.viterbi_path_plain(log_obs, n))
         mismatches = int((got != ref).sum())
         # per step and bin: 23 candidate adds and compares, the teleport
         # compare, + obs, the block max's compare and the renorm subtract,
@@ -709,7 +709,8 @@ def check_kernels(calls: dict) -> dict:
         # the path, so it adds to no per-convert total)
         walk = structured_log_obs(t_len, n).to(log_obs.device)
         got = vt.viterbi_path(walk, n)
-        ref, plain_ms = timed_once(lambda: vt.viterbi_path_plain(walk, n))
+        ref = vt.viterbi_path_plain(walk, n)
+        plain_ms = timed_once(lambda: vt.viterbi_path_plain(walk, n))
         add("viterbi", float((got - ref).abs().max()), 0.0, ref,
             cuda_ms(lambda: vt.viterbi_path(walk, n)), plain_ms, None, 0.0, 0.0,
             torch.float32, 0, [t_len, bins, n, "random walk"],
@@ -854,9 +855,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from unittest import mock
-
-    from polgen_rvc_tpu_torch.convert import synthetic
     from polgen_rvc_tpu_torch.ops import (
         band_attention, conv_transpose, cuda_build, resblock_group, unet_chain, viterbi,
     )
@@ -954,6 +952,11 @@ def main() -> int:
     launches["viterbi"] = crun["launches"]["viterbi"]
     del cvc, crun
 
+    # ---- kernels at the main and crepe paths' inputs -----------------------
+    kernels = check_kernels({**rec.calls, **crec.calls})
+    del rec, crec
+    emit({"phase": "kernels", "detail": kernels})
+
     # ---- fcpe path ---------------------------------------------------------
     t0 = time.perf_counter()
     fvc = build_synthetic_converter(tiny=False, sr=48000, index_vectors=65536,
@@ -1013,9 +1016,8 @@ def main() -> int:
 
     # ---- v1 32 kHz model ---------------------------------------------------
     t0 = time.perf_counter()
-    with mock.patch.dict(synthetic.V2_CONFIGS, {32000: V1_32K}):
-        vvc = build_synthetic_converter(tiny=False, sr=32000, version="v1",
-                                        index_vectors=65536, engine=eng, device="cuda")
+    vvc = build_synthetic_converter(tiny=False, sr=32000, version="v1",
+                                    index_vectors=65536, engine=eng, device="cuda")
     setup_s = time.perf_counter() - t0
     vrun = drive(vvc, song, opts, wrappers)
     vprofile = profile_convert(vvc, song, opts)
@@ -1040,14 +1042,13 @@ def main() -> int:
     check_resblock_launches(vrun, "v1 32 kHz path", stages=5)
     check_convt_launches(vrun, "v1 32 kHz path", stages=5)
     check_unet_launches(vrun, "v1 32 kHz path")
-    if vvc.version != "v1" or vvc.synth_cfg.input_dim != 256:
-        raise AssertionError("v1 32 kHz path: not a v1 model")
+    if (vvc.version != "v1" or vvc.synth_cfg.input_dim != 256
+            or list(vvc.synth_cfg.upsample_rates) != [10, 4, 2, 2, 2]
+            or list(vvc.synth_cfg.upsample_kernel_sizes) != [16, 16, 4, 4, 4]):
+        raise AssertionError("v1 32 kHz path: not configs/v1/32k.json's model")
     del vvc, vrun
 
-    # ---- kernels at their paths' inputs ------------------------------------
-    kernels = check_kernels({**rec.calls, **crec.calls})
-    del rec, crec
-    emit({"phase": "kernels", "detail": kernels})
+    # ---- conv-transpose and resblock group at the v1_32k inputs ------------
     emit({"phase": "kernels_v1_32k", "detail": check_kernels(vrec.calls),
           **padding_stays_zero(vrec.calls)})
     del vrec
@@ -1135,9 +1136,8 @@ def main() -> int:
 
     nof0_dist = card_and_cpu(synthetic_params(tiny=False, sr=48000, index_vectors=4096,
                                               seed=0, use_f0=False), 48000, False)
-    with mock.patch.dict(synthetic.V2_CONFIGS, {32000: V1_32K}):
-        v1_model = synthetic_params(tiny=False, sr=32000, version="v1",
-                                    index_vectors=4096, seed=0)
+    v1_model = synthetic_params(tiny=False, sr=32000, version="v1",
+                                index_vectors=4096, seed=0)
     v1_dist = card_and_cpu(v1_model, 32000, True)
     emit({"phase": "reference", "input_s": 2.0, "card_dtype": "bfloat16",
           "cpu_dtype": "float32", "samples": [int(renditions["cuda"].shape[0]),

@@ -21,11 +21,22 @@ V2_CONFIGS = {
     40000: dict(spec=1025, up_rates=[10, 10, 2, 2], up_k=[16, 16, 4, 4]),
     48000: dict(spec=1025, up_rates=[12, 10, 2, 2], up_k=[24, 20, 4, 4]),
 }
+# RVC-Project configs/v1/{32k,40k,48k}.json: five decoder stages from 512
+# channels at 32 and 48 kHz (the last 16 wide; 32 kHz's second stage has
+# padding 6 > stride 4); 40 kHz is v2's
+V1_CONFIGS = {
+    32000: dict(spec=513, up_rates=[10, 4, 2, 2, 2], up_k=[16, 16, 4, 4, 4]),
+    40000: V2_CONFIGS[40000],
+    48000: dict(spec=1025, up_rates=[10, 6, 2, 2, 2], up_k=[16, 16, 4, 4, 4]),
+}
+CONFIGS = {"v1": V1_CONFIGS, "v2": V2_CONFIGS}
 
 
-def rvc_config_list(sr: int = 48000, *, spk: int = 1, tiny: bool = False):
-    """The 18-element `config` list stored in .pth files (infer.py:86-97)."""
-    c = V2_CONFIGS[sr]
+def rvc_config_list(sr: int = 48000, *, spk: int = 1, tiny: bool = False,
+                    version: str = "v2"):
+    """The 18-element `config` list stored in .pth files (infer.py:86-97),
+    with the decoder rates of `version`'s published config at `sr`."""
+    c = CONFIGS[version][sr]
     if tiny:
         return [
             c["spec"], 32, 32, 32, 64, 2, 2, 3, 0, "1",
@@ -81,7 +92,7 @@ def make_rvc_checkpoint(
 ):
     """Fabricate an RVC .pth-equivalent dict {config, weight, f0, version}."""
     rng = np.random.default_rng(seed)
-    config = rvc_config_list(sr, spk=spk, tiny=tiny)
+    config = rvc_config_list(sr, spk=spk, tiny=tiny, version=version)
     cfg = build_config(config, use_f0=use_f0, version=version)
     H, F_, I = cfg.hidden_channels, cfg.filter_channels, cfg.inter_channels
     dk = H // cfg.n_heads

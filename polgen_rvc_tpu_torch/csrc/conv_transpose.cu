@@ -28,11 +28,12 @@
 // Design: bf16 in and out with no cast pass around the kernel (fp32 in and
 // out for checks at fp32 summation order). A block of eight warps owns one
 // batch row, BN input positions and BM output channels, for all u phases.
-// It stages x[:, m0-H : m0+BN+H] once (H at least 1), for the whole of
-// C_in, as bf16 in shared memory (time-major, channels contiguous, so every
-// tap offset d is the same buffer shifted by d rows). Each phase's run of
-// offsets and the packed block of its first tap come in a table made on the
-// host. Warps then take tasks of (phase, 32 channels, 64 positions):
+// It stages x[:, m0-H : m0+BN+H] once (H, a template argument, at least
+// 1), for the whole of C_in, as bf16 in shared memory (time-major, channels
+// contiguous, so every tap offset d is the same buffer shifted by d rows).
+// Each phase's run of offsets and the packed block of its first tap are
+// closed forms at H = 1 and short sums over the earlier phases at H = 2.
+// Warps then take tasks of (phase, 32 channels, 64 positions):
 // mma.sync m16n8k16 with the taps' weights as A
 // fragments straight from global memory (L2-resident; each weight element
 // is read by one warp of the block, one step ahead of its use) and x as B
@@ -83,26 +84,19 @@ size_t smem_bytes(int Cin, int BM, int BN, int u, int H) {
          (size_t)BM * (BN * u + 16 / sizeof(T)) * sizeof(T);
 }
 
-constexpr int MAX_U = 32;
-
 // floor(a / u) for u > 0 and any sign of a
-inline int floor_div(int a, int u) { return a >= 0 ? a / u : -((u - 1 - a) / u); }
-
-// Each phase r's run of offsets D(r) = d0[r] .. d0[r] + ntap[r] - 1 and the
-// packed block of its first tap, made on the host and passed by value (the
-// kernel reads it from the parameter bank, no arithmetic per task).
-struct Phases {
-  int d0[MAX_U], ntap[MAX_U], start[MAX_U];
-};
+__host__ __device__ __forceinline__ int floor_div(int a, int u) {
+  return a >= 0 ? a / u : -((u - 1 - a) / u);
+}
 
 // x: (B, Cin, Tin) T; w: (k, Cout, Cin) bf16 phase-packed taps; bias: (Cout,)
 // fp32; y: (B, Cout, Tin*u) T. Grid (ceil(Tin / BN), Cout / BM, B); BM is a
-// multiple of WM, BN of WN, Cin and Cout of 32; H >= ceil(pad / u).
-template <typename T>
+// multiple of WM, BN of WN, Cin and Cout of 32; H = 1 for pad <= u, else 2.
+template <typename T, int H>
 __global__ void __launch_bounds__(THREADS, 2)
 convt_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
              const float* __restrict__ bias, T* __restrict__ y, int Cin,
-             int Cout, int Tin, int u, const Phases ph, int H, int BM, int BN) {
+             int Cout, int Tin, int u, int pad, int BM, int BN) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int VEC = 16 / sizeof(T);
   const int CS = Cin + 8;  // staged row stride in bf16: rows 16 bytes apart mod 128
@@ -149,7 +143,19 @@ convt_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     const int og = rem / n_ng, ng = rem - og * n_ng;
     // D(r) is the run d0 .. d0 + ntap - 1 within -H..H; its taps start at
     // packed block `start`, after the taps of phases 0 .. r-1
-    const int d0 = ph.d0[r], ntap = ph.ntap[r], start = ph.start[r];
+    int d0, ntap, start;
+    if constexpr (H == 1) {
+      // d = 0 always, d = -1 when r < pad, d = +1 when r >= u - pad
+      d0 = r < pad ? -1 : 0;
+      ntap = 1 + (r < pad) + (r >= u - pad);
+      start = r + min(r, pad) + max(0, r - (u - pad));
+    } else {
+      d0 = floor_div(r - pad, u);
+      ntap = floor_div(r + pad, u) - d0 + 1;
+      start = 0;
+      for (int rr = 0; rr < r; ++rr)
+        start += floor_div(rr + pad, u) - floor_div(rr - pad, u) + 1;
+    }
     const __nv_bfloat16* wr =
         w + ((size_t)start * Cout + o0 + og * WM + g) * Cin + 2 * q;
     const size_t tap_stride = (size_t)Cout * Cin;
@@ -245,20 +251,10 @@ convt_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
   }
 }
 
-template <typename T>
+template <typename T, int H>
 cudaError_t launch_t(const void* x, const void* w, const void* bias, void* y,
                      int B, int Cin, int Cout, int Tin, int u, int pad,
                      cudaStream_t stream) {
-  // the staged halo: ceil(pad / u), at least one row (the H = 1 layout of
-  // every p <= u stage)
-  const int H = pad > u ? (pad + u - 1) / u : 1;
-  Phases ph;
-  for (int r = 0, start = 0; r < u; ++r) {
-    ph.d0[r] = floor_div(r - pad, u);
-    ph.ntap[r] = floor_div(r + pad, u) - ph.d0[r] + 1;
-    ph.start[r] = start;
-    start += ph.ntap[r];
-  }
   int BM = Cout % 64 == 0 ? 64 : 32;
   // widen the block in time until its tasks cover the eight warps
   int BN = WN;
@@ -270,32 +266,42 @@ cudaError_t launch_t(const void* x, const void* w, const void* bias, void* y,
   }
   const size_t smem = smem_bytes<T>(Cin, BM, BN, u, H);
   cudaError_t err = cudaFuncSetAttribute(
-      convt_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      convt_kernel<T, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Tin + BN - 1) / BN, Cout / BM, B);
-  convt_kernel<T><<<grid, THREADS, smem, stream>>>(
+  convt_kernel<T, H><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<const float*>(bias), static_cast<T*>(y), Cin, Cout, Tin, u,
-      ph, H, BM, BN);
+      pad, BM, BN);
   return cudaGetLastError();
+}
+
+// The staged halo H = ceil(pad / u), at least one row: every p <= u stage
+// runs the H = 1 instance, whose phase runs are closed forms; p > u stages
+// (v1 32 kHz's second) the H = 2 one.
+template <typename T>
+cudaError_t launch_h(const void* x, const void* w, const void* bias, void* y,
+                     int B, int Cin, int Cout, int Tin, int u, int pad,
+                     cudaStream_t stream) {
+  return pad > u ? launch_t<T, 2>(x, w, bias, y, B, Cin, Cout, Tin, u, pad, stream)
+                 : launch_t<T, 1>(x, w, bias, y, B, Cin, Cout, Tin, u, pad, stream);
 }
 
 }  // namespace
 
 // x: (B, Cin, Tin) and y: (B, Cout, Tin*u), both bf16 when bf16_io, else
 // fp32; w: (k, Cout, Cin) bf16 as pack_phase_taps lays it out, k = u + 2*pad;
-// bias: (Cout,) fp32. Cin and Cout are multiples of 32; u <= 32; pad <= 2u
-// (H <= 2).
+// bias: (Cout,) fp32. Cin and Cout are multiples of 32; pad <= 2u (H <= 2).
 POLGEN_API int conv_transpose_upsample(const void* x, const void* w,
                                        const void* bias, void* y, int B,
                                        int Cin, int Cout, int Tin, int u,
                                        int pad, int bf16_io, void* stream) {
   if (Cin % 32 != 0 || Cout % 32 != 0 || Cin < 32 || Cout < 32 || B < 1 ||
-      B > 65535 || Tin < 1 || u < 1 || u > MAX_U || pad < 0 || pad > 2 * u)
+      B > 65535 || Tin < 1 || u < 1 || pad < 0 || pad > 2 * u)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   return (int)(bf16_io
-                   ? launch_t<__nv_bfloat16>(x, w, bias, y, B, Cin, Cout, Tin,
+                   ? launch_h<__nv_bfloat16>(x, w, bias, y, B, Cin, Cout, Tin,
                                              u, pad, s)
-                   : launch_t<float>(x, w, bias, y, B, Cin, Cout, Tin, u, pad, s));
+                   : launch_h<float>(x, w, bias, y, B, Cin, Cout, Tin, u, pad, s));
 }

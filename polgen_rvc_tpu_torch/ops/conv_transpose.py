@@ -14,9 +14,10 @@ Output sample t = m*u + r draws on input m + d only for the offsets d of
 whose weight taps r + p - d*u lie inside the kernel. Every offset lies
 within -H..H for the halo H = ceil(p/u); the kernel stages that halo and
 takes H <= 2, which holds every published RVC config (v1 32 kHz's
-u = 4, k = 16, p = 6 has H = 2; the rest H = 1). ``pack_phase_taps`` lays
-out exactly those weight taps, phase by phase, with no zero blocks. Working precision: bf16 operands, fp32 accumulation
-and bias, the result rounded once to x's dtype.
+u = 4, k = 16, p = 6 has H = 2; the rest H = 1). ``pack_phase_taps``
+lays out exactly those weight taps, phase by phase, with no zero blocks.
+Working precision: bf16 operands, fp32 accumulation and bias, the result
+rounded once to x's dtype.
 """
 
 from __future__ import annotations
@@ -42,8 +43,7 @@ def conv_transpose1d_plain(x, w, b, *, stride: int, padding: int,
     return y.to(x.dtype)
 
 
-MAX_HALO = 2
-MAX_STRIDE = 32  # the kernel's phase table
+MAX_HALO = 2  # the largest halo the kernel stages
 
 
 def phase_taps(stride: int, padding: int) -> list[list[int]]:
@@ -96,9 +96,6 @@ def conv_transpose1d(x, w, b, *, stride: int, padding: int, taps=None):
     if c_in % 32 or c_out % 32:
         raise ValueError(f"conv_transpose1d: C_in={c_in}, C_out={c_out} must "
                          "be multiples of 32")
-    if stride > MAX_STRIDE:
-        raise ValueError(f"conv_transpose1d: stride {stride} above the kernel's "
-                         f"{MAX_STRIDE}")
     if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
         raise ValueError(f"conv_transpose1d: x is {x.dtype}, the kernel takes "
                          "contiguous float32 or bfloat16")

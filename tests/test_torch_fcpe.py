@@ -19,6 +19,7 @@ import torch
 
 from polgen_rvc_tpu.convert import fcpe_ckpt as jax_ckpt
 from polgen_rvc_tpu.models import fcpe as jfcpe
+from polgen_rvc_tpu.pipeline.fcpe_method import fcpe_f0 as jax_fcpe_f0
 from polgen_rvc_tpu.pipeline.config import (
     ConversionOptions as JaxOptions, EngineConfig as JaxEngineConfig,
 )
@@ -284,6 +285,48 @@ def test_fcpe_host_path_tracks_device_path(converters):
     assert np.median(rel) < 1e-4
     assert np.mean(rel < 1e-2) > 0.95, f"fcpe device/host diverge: {rel.max()}"
     assert np.mean(pitch_d[:n_cmp] == pitch_h[:n_cmp]) > 0.95
+
+
+@pytest.mark.parametrize("hop", [160, 320])
+def test_fcpe_host_path_matches_jax(converters, hop):
+    """The host path as a whole (fcpe_f0: 1,024-frame buckets, n_valid,
+    threshold 0.03, the predictor's post onto p_len frames) against the
+    JAX package's fcpe_f0 on the same padded float signal, at the window's
+    hop and at twice it; then, off the window, the engine's compute_f0 (on
+    the int16-quantized bucket) against the JAX compute_f0 through the
+    pitch shift and coarse bins. The bounds of tests/test_f0_methods.py
+    for the JAX package's own two fcpe paths."""
+    vc, jvc = converters
+    cfg = dataclasses.replace(vc.fcpe_cfg, hop_size=hop)
+    jv = copy.copy(jvc)
+    jv.fcpe_cfg, jv._fcpe_fns = _jcfg(cfg), {}
+    song = _bench_song(3.0)
+    audio = np.asarray(jvc._upload_preamble(song)[3].padded_audio, np.float32)
+    p_len = audio.shape[0] // vc.engine.window
+    jopts = JaxOptions(f0_method="fcpe", pitch=2.0)
+
+    def assert_close(got, ref):
+        rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)
+        assert np.median(rel) < 1e-4
+        assert np.mean(rel < 1e-2) > 0.95, f"fcpe host path vs JAX: {rel.max()}"
+        assert np.mean(ref > 0) > 0.5  # voiced, not all gated
+
+    got = fcpe_method.fcpe_f0(vc.fcpe_params, cfg, torch.from_numpy(audio), p_len)
+    ref = jax_fcpe_f0(jv, audio, p_len, jopts)
+    assert got.dtype == ref.dtype == np.float32 and got.shape == ref.shape == (p_len,)
+    assert_close(got, ref)
+    if hop == vc.engine.window:
+        return  # the engine takes the device path here
+    port = copy.copy(vc)
+    port.fcpe_cfg = cfg
+    _, qbuf, inv_scale, padded_len = highpass_pad_quant(song, vc.engine.t_pad)
+    assert padded_len == audio.shape[0]
+    pitch, pitchf = port.compute_f0(torch.from_numpy(qbuf).float() * float(inv_scale),
+                                    ConversionOptions(f0_method="fcpe", pitch=2.0),
+                                    padded_len)
+    jpitch, jpitchf = jv.compute_f0(audio, p_len, jopts)
+    assert_close(pitchf.numpy()[:p_len], jpitchf)
+    assert np.mean(pitch.numpy()[:p_len] == jpitch) > 0.95
 
 
 def test_fcpe_engine_takes_the_host_path_off_the_window(converters, monkeypatch):

@@ -11,8 +11,9 @@ The published v1 decoders (RVC-Project configs/v1) start from 512 channels
 like v2 but have five stages, so their last stage is 16 wide, and v1
 32 kHz's second stage (u = 4, k = 16) has padding 6 > stride: offsets
 -2..2. Both are run here at tiny width through the port's load-time
-packing (the zero-padded stages, pack_phase_taps) and plain twins, with
-both packages' V2_CONFIGS patched to those rates.
+packing (the zero-padded stages, pack_phase_taps) and plain twins. The
+port's factory builds those rates for version "v1"; the JAX factory knows
+v2's only, so its V2_CONFIGS is patched to them.
 """
 
 import copy
@@ -193,8 +194,7 @@ def test_convert_v1_matches_jax(monkeypatch):
     """A v1 model of the published 48 kHz v1 shape (five stages): HuBERT's
     layer-9-or-last output through final_proj into a 256-wide content
     input (final_proj's width at tiny size), on rmvpe+."""
-    for mod in (port_synthetic, jax_synthetic):
-        monkeypatch.setitem(mod.V2_CONFIGS, 48000, V1_RATES[48000])
+    monkeypatch.setitem(jax_synthetic.V2_CONFIGS, 48000, V1_RATES[48000])
     vc, model = _port_converter(version="v1")
     jvc = _jax_v1_converter(48000)
     assert vc.version == jvc.version == "v1"
@@ -204,6 +204,19 @@ def test_convert_v1_matches_jax(monkeypatch):
     assert dist < 0.5, f"mel distortion {dist:.3f} dB"
 
 
+@pytest.mark.parametrize("sr", [32000, 40000, 48000])
+def test_v1_config_list_is_the_published_one(sr):
+    """version="v1" picks configs/v1's decoder (40 kHz: v2's rates, as
+    published); v2 keeps the JAX factory's list."""
+    v1 = V1_RATES.get(sr, jax_synthetic.V2_CONFIGS[sr])
+    for tiny in (True, False):
+        got = port_synthetic.rvc_config_list(sr, tiny=tiny, version="v1")
+        assert (got[0], got[12], got[14]) == (v1["spec"], v1["up_rates"], v1["up_k"])
+        v2 = jax_synthetic.rvc_config_list(sr, tiny=tiny)
+        assert got[:12] + got[13:14] + got[15:] == v2[:12] + v2[13:14] + v2[15:]
+        assert port_synthetic.rvc_config_list(sr, tiny=tiny) == v2
+
+
 @pytest.mark.parametrize("sr", [48000, 32000])
 def test_v1_decoder_shapes_match_jax(sr, monkeypatch):
     """The published v1 decoders at tiny width: five stages (64 -> 32, 16,
@@ -211,8 +224,7 @@ def test_v1_decoder_shapes_match_jax(sr, monkeypatch):
     stage of u = 4, k = 16, padding 6: four taps a phase at offsets -2..2.
     The port's generator_nsf through pack_decoder_weights against JAX's
     (XLA's conv_transpose keeps every tap), noise-free, 2e-4 absolute."""
-    for mod in (port_synthetic, jax_synthetic):
-        monkeypatch.setitem(mod.V2_CONFIGS, sr, V1_RATES[sr])
+    monkeypatch.setitem(jax_synthetic.V2_CONFIGS, sr, V1_RATES[sr])
     cpt = port_synthetic.make_rvc_checkpoint(sr=sr, tiny=True, seed=7, version="v1")
     jcpt = jax_synthetic.make_rvc_checkpoint(sr=sr, tiny=True, seed=7, version="v1")
     cfg = build_config(cpt["config"], use_f0=True, version="v1")
