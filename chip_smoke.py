@@ -20,9 +20,31 @@ exit code != 0):
                resblock-group kernel exactly 36 times (4 stages x 9 conv
                pairs, one chunk batch), the U-Net chain kernel exactly 112
                times (14 levels x 4 blocks x 2 convs).
-               The output must have the planned length and not be silent.
+               The output must have the planned length, not be silent,
+               and repeat the warm-up convert's bytes.
   profile:     one more convert under torch.profiler: the device's busy
                and idle share of the wall time, and kernels by device time.
+  batch:       convert_batch on the main path's converter over four songs
+               cut from the song (60, 41, 23 and 9 s), each chunk in its
+               own bucket class: launches per packed batch (resblock group
+               36, conv-transpose 4, band attention 6) and per song (U-Net
+               chain 112); each song against its serial convert (bytes
+               where all its chunks ride the same buckets, else the
+               difference printed and < 0.5 dB); wall, RTF and kernel time
+               of the packed call and of the four serial converts, peak
+               memory.
+  checkpoint:  the main path's model set written as files (torch.save'd
+               RVC .pth, fairseq-layout HuBERT, RMVPE state dict, a
+               65,536-vector IVF-Flat index) into a temporary directory,
+               loaded by build_converter on the card: its convert of the
+               60 s song equals the main path's output byte for byte; each
+               file's size and load time.
+  cli:         in that directory as the working directory, rvc_cli.main on
+               a 20 s stereo 44.1 kHz WAV (-ir 0.5 -f wav, the CLI's
+               default float32 engine): output/Voice_Converted.wav at
+               48 kHz, of the planned length within one frame, not silent,
+               every main-path kernel launched; then -f mp3 (libmp3lame or
+               the WAV fallback).
   crepe:       the same, with full-width CREPE weights
                (with_crepe=True) and f0_method="mangio-crepe" at hop 128:
                viterbi launches exactly once a convert, the resblock group
@@ -86,8 +108,8 @@ exit code != 0):
                error < 1e-4, > 95% of frames below 1e-2, > 95% of coarse
                bins equal). The no-f0 renditions, and the v1 32 kHz
                renditions on one F0, stay below 0.5 dB.
-Then the {"kernels": [...]} line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.
+Then a "total" line with the script's seconds, the {"kernels": [...]}
+line, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -95,6 +117,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -117,10 +140,9 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bench_song(seconds: float) -> np.ndarray:
+def bench_song(seconds: float, sr: int = 16000) -> np.ndarray:
     """bench.py's synthetic song: vibrato sine + octave + light noise."""
     rng = np.random.default_rng(0)
-    sr = 16000
     t = np.arange(int(seconds * sr)) / sr
     vibrato = 1.0 + 0.01 * np.sin(2 * np.pi * 5.0 * t)
     return (0.4 * np.sin(2 * np.pi * 220.0 * t * vibrato)
@@ -729,20 +751,29 @@ def model_bytes(vc) -> int:
     return sum(seen.values())
 
 
+def zero_launches(wrappers: dict):
+    for fn in wrappers.values():
+        fn.launches = 0
+
+
+def read_launches(wrappers: dict) -> dict:
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
 def drive(vc, song, opts, wrappers: dict) -> dict:
     """One warm-up convert; then every kernel's launch count set to 0, one
-    timed convert, the counts read. Returns its numbers and output. Peak
+    timed convert, the counts read. Returns its numbers and output, and
+    whether the two converts gave the same bytes (repeatable). Peak
     memory: max_memory_allocated counts whatever the script still holds
     on the card (the main path's recorded kernel inputs, once recorded);
     peak_own_bytes counts only this converter's weights and the convert."""
     import torch
 
     t0 = time.perf_counter()
-    vc.convert(song, opts)
+    warm_out, _ = vc.convert(song, opts)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    for fn in wrappers.values():
-        fn.launches = 0
+    zero_launches(wrappers)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
@@ -756,8 +787,8 @@ def drive(vc, song, opts, wrappers: dict) -> dict:
             "realtime_factor": SONG_SECONDS / wall,
             "max_memory_allocated": peak, "resident_before_bytes": resident,
             "model_bytes": weights, "peak_own_bytes": peak - resident + weights,
-            "launches": {name: fn.launches for name, fn in wrappers.items()},
-            "out": out, "sr": sr}
+            "launches": read_launches(wrappers),
+            "repeatable": bool(np.array_equal(warm_out, out)), "out": out, "sr": sr}
 
 
 def check_output(run: dict, expected: int, path: str, launched, idle,
@@ -849,6 +880,261 @@ def check_unet_launches(run: dict, path: str):
                              f"{run['launches']['unet_chain']} times, not 112")
 
 
+def chunk_spans(vc, plan) -> list:
+    """Each chunk's (start, end) in the song's output samples."""
+    eng = vc.engine
+    spans, at = [], 0
+    for c in plan.chunks:
+        n = c.slice_end - c.slice_start
+        v = min(n // eng.window, 2 * vc.hubert_cfg.num_frames(n))
+        out = max(v * vc.synth_cfg.upp - 2 * vc.tgt_sr * eng.x_pad, 0)
+        spans.append((at, at + out))
+        at += out
+    return spans
+
+
+def batch_phase(vc, song, opts, wrappers, smi, seconds=(60, 41, 23, 9)) -> dict:
+    """convert_batch over four songs cut from the bench song (60, 41, 23 and
+    9 s) on the main path's converter, against each song's serial convert.
+
+    One warm-up of each route; then the packed call with the launch counts
+    set to 0 before it and read after it (resblock group 36 and
+    conv-transpose 4 per packed batch, band attention 6 per batch, the
+    U-Net chain 112 per song), and the four serial converts, each timed on
+    the host clock and profiled for device time. A song all of whose chunks
+    ride the same bucket in both routes must come out byte for byte; any
+    other song's difference is printed, per chunk too, and must stay below
+    0.5 dB of mel distortion (the whole-song RMS gain spreads a chunk's
+    difference into its neighbours' samples)."""
+    import torch
+
+    from polgen_rvc_tpu_torch.pipeline.batch_cover import bucket_class, pack_work
+    from polgen_rvc_tpu_torch.utils.metrics import mel_distortion_db
+
+    eng = vc.engine
+    songs = [song[:s * eng.sample_rate] for s in seconds]
+    plans = [vc._prepare_song(x, opts).plan for x in songs]
+    work = pack_work(plans, eng)
+    serial_bucket = []
+    for plan in plans:
+        by_chunk = {}
+        for idxs, bucket in zip(*vc._batch_geometry(plan)):
+            by_chunk.update({ci: bucket for ci in idxs})
+        serial_bucket.append([by_chunk[ci] for ci in range(len(plan.chunks))])
+
+    batches = []
+    orig = vc._chunk_batch
+
+    def counted(rows, bucket, *a, **k):
+        batches.append(bucket)
+        return orig(rows, bucket, *a, **k)
+
+    vc.convert_batch(songs, opts)
+    for x in songs:
+        vc.convert(x, opts)
+    torch.cuda.synchronize()
+    vc._chunk_batch = counted
+    try:
+        zero_launches(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed = vc.convert_batch(songs, opts)
+        torch.cuda.synchronize()
+        packed_s = time.perf_counter() - t0
+        launches = read_launches(wrappers)
+    finally:
+        del vc._chunk_batch
+    peak = torch.cuda.max_memory_allocated()
+    serial, serial_s = [], 0.0
+    for x in songs:
+        t0 = time.perf_counter()
+        serial.append(vc.convert(x, opts))
+        torch.cuda.synchronize()
+        serial_s += time.perf_counter() - t0
+    packed_prof = profile_call(lambda: vc.convert_batch(songs, opts))
+    serial_prof = profile_call(lambda: [vc.convert(x, opts) for x in songs])
+
+    b, n_songs = len(batches), len(songs)
+    want = {"resblock_group": 36 * b, "conv_transpose": 4 * b, "band_attention": 6 * b,
+            "unet_chain": 112 * n_songs, "viterbi": 0}
+    per_song = []
+    for si, (plan, (out, sr), (ref, ref_sr)) in enumerate(zip(plans, packed, serial)):
+        packed_bucket = [bucket_class(c, eng) for c in plan.chunks]
+        same = packed_bucket == serial_bucket[si]
+        if sr != ref_sr or out.shape != ref.shape:
+            raise AssertionError(f"batch song {si}: {out.shape} @ {sr} against "
+                                 f"{ref.shape} @ {ref_sr}")
+        d = np.abs(out.astype(np.int32) - ref.astype(np.int32))
+        chunks = [{"packed_bucket_s": pb / eng.sample_rate,
+                   "serial_bucket_s": sb / eng.sample_rate,
+                   "max_abs_diff": int(d[a:e].max()) if e > a else 0,
+                   "share_differing": float((d[a:e] > 0).mean()) if e > a else 0.0}
+                  for pb, sb, (a, e) in zip(packed_bucket, serial_bucket[si],
+                                            chunk_spans(vc, plan))]
+        entry = {"seconds": seconds[si], "chunks": chunks, "same_buckets": same,
+                 "identical": bool(np.array_equal(out, ref)),
+                 "max_abs_diff": int(d.max()), "share_differing": float((d > 0).mean()),
+                 "mel_distortion_db": mel_distortion_db(out, ref, sr),
+                 "peak_int16": int(np.abs(out.astype(np.int32)).max())}
+        per_song.append(entry)
+    total_s = float(sum(seconds))
+    result = {"phase": "batch", "songs_s": list(seconds), "seconds_audio": total_s,
+              "chunks": sum(len(p.chunks) for p in plans),
+              "packed_batches": b, "packed_buckets_s": [x / eng.sample_rate for x in batches],
+              "planned": [[bk / eng.sample_rate, g] for bk, g in work],
+              "serial_batches": sum(len(vc._batch_geometry(p)[0]) for p in plans),
+              "launches": launches, "launches_expected": want,
+              "packed_wall_s": packed_s, "packed_realtime_factor": total_s / packed_s,
+              "serial_wall_s": serial_s, "serial_realtime_factor": total_s / serial_s,
+              "packed_kernel_ms": packed_prof["device_busy_ms"],
+              "serial_kernel_ms": serial_prof["device_busy_ms"],
+              "packed_profiled_wall_ms": packed_prof["wall_ms"],
+              "serial_profiled_wall_ms": serial_prof["wall_ms"],
+              "max_memory_allocated": peak, "songs": per_song, "card": smi}
+    emit(result)
+    if launches != want:
+        raise AssertionError(f"batch: launches {launches}, expected {want}")
+    if b != len(work):
+        raise AssertionError(f"batch: {b} packed batches ran, {len(work)} planned")
+    if not any(len({si for si, _ in g}) > 1 for _, g in work):
+        raise AssertionError("batch: no batch mixed songs")
+    if not any(bk < max(serial_bucket[si]) for bk, g in work for si, _ in g):
+        raise AssertionError("batch: no batch ran below a song's largest bucket")
+    for entry in per_song:
+        if entry["same_buckets"] and not entry["identical"]:
+            raise AssertionError(f"batch: the {entry['seconds']} s song rode the same "
+                                 "buckets packed and serial but its bytes differ")
+        if entry["peak_int16"] < 1000 or not entry["mel_distortion_db"] < 0.5:
+            raise AssertionError(f"batch: the {entry['seconds']} s song: {entry}")
+    return result
+
+
+def checkpoint_phase(root, eng, song, opts, main_out, wrappers, smi) -> dict:
+    """Write the main path's full-width model set as the files a user has
+    (torch.save'd RVC v2 48 kHz f0 .pth, fairseq-layout HuBERT, RMVPE's raw
+    state dict, a 65,536 x 768 IVF-Flat index in one list) under root, load
+    them with build_converter on the card, and convert the 60 s song: the
+    output must equal, byte for byte, the synthetic converter's of the main
+    path (same seeds, same default noise)."""
+    import os
+
+    import torch
+
+    from polgen_rvc_tpu_torch.convert.hubert_ckpt import load_hubert_checkpoint
+    from polgen_rvc_tpu_torch.convert.rmvpe_ckpt import load_rmvpe_checkpoint
+    from polgen_rvc_tpu_torch.convert.rvc_ckpt import load_rvc_checkpoint
+    from polgen_rvc_tpu_torch.pipeline.factory import build_converter, write_synthetic_files
+    from polgen_rvc_tpu_torch.retrieval.topk import load_index_bank
+
+    t0 = time.perf_counter()
+    paths = write_synthetic_files(root, "voice", tiny=False, sr=48000, index_vectors=65536)
+    write_s = time.perf_counter() - t0
+    files = {}
+    for key, loader in (("rvc", load_rvc_checkpoint), ("hubert", load_hubert_checkpoint),
+                        ("rmvpe", load_rmvpe_checkpoint), ("index", load_index_bank)):
+        t0 = time.perf_counter()
+        loader(paths[key])
+        files[key] = {"path": os.path.relpath(paths[key], root),
+                      "bytes": os.path.getsize(paths[key]),
+                      "load_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    cvc = build_converter(paths["rvc"], paths["hubert"], paths["rmvpe"], paths["index"],
+                          engine=eng, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    zero_launches(wrappers)
+    t0 = time.perf_counter()
+    out, sr = cvc.convert(song, opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    d = np.abs(out.astype(np.int32) - main_out.astype(np.int32)) \
+        if out.shape == main_out.shape else None
+    result = {"phase": "checkpoint", "files": files, "write_s": write_s,
+              "build_converter_s": build_s, "convert_wall_s": wall, "sr": sr,
+              "launches": launches, "out_samples": int(out.shape[0]),
+              "equal_to_synthetic": bool(np.array_equal(out, main_out)),
+              "max_abs_diff": None if d is None else int(d.max()), "card": smi}
+    emit(result)
+    del cvc
+    if not result["equal_to_synthetic"]:
+        raise AssertionError("checkpoint: the converter loaded from files differs "
+                             "from the synthetic one")
+    missing = [k for k in ("resblock_group", "conv_transpose", "band_attention",
+                           "unet_chain") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"checkpoint: kernels never launched: {missing}")
+    return result
+
+
+def cli_phase(root, wrappers, smi) -> dict:
+    """In a working directory holding models/voice/ and assets/ (the
+    checkpoint phase's files), a 20 s stereo 44.1 kHz WAV of the bench song
+    through rvc_cli.main with -ir 0.5 -f wav, on the CLI's default engine
+    (float32 compute, the kernels' fp32-x routes): output/Voice_Converted.wav
+    at 48 kHz, of the length convert plans for the 16 kHz input within one
+    frame, finite and not silent, every
+    main-path kernel launched (counts set to 0 just before, read after).
+    Then -f mp3: libmp3lame where the machine has it, else the WAV
+    fallback."""
+    import os
+
+    import torch
+
+    from polgen_rvc_tpu_torch.app import rvc_cli, voice_conversion
+    from polgen_rvc_tpu_torch.utils import mp3_codec
+    from polgen_rvc_tpu_torch.utils.audio_io import _write_wav, load_audio, read_audio
+
+    seconds, in_sr = 20, 44100
+    x = bench_song(seconds, sr=in_sr)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        _write_wav("song.wav", np.stack([x, 0.8 * x], 1), in_sr)
+        argv = ["-i", "song.wav", "-m", "voice", "-p", "0", "-ir", "0.5"]
+        zero_launches(wrappers)
+        t0 = time.perf_counter()
+        path = rvc_cli.main(argv + ["-f", "wav"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(wrappers)
+        y, sr = read_audio(path)
+        (vc,) = voice_conversion._CONVERTER_CACHE.values()
+        expected = expected_samples(vc, load_audio("song.wav", 16000), vc.engine, 48000)
+        t0 = time.perf_counter()
+        mp3_path = rvc_cli.main(argv + ["-f", "mp3"])
+        torch.cuda.synchronize()
+        mp3_wall = time.perf_counter() - t0
+        mp3 = {"path": mp3_path, "wall_s": mp3_wall,
+               "encoder": "libmp3lame" if mp3_path.endswith(".mp3") else "wav fallback",
+               "bytes": os.path.getsize(mp3_path)}
+        if mp3_path.endswith(".mp3") and mp3_codec.available():
+            m, msr = read_audio(mp3_path)
+            mp3.update(decoded_samples=int(m.shape[0]), decoded_sr=msr)
+    finally:
+        os.chdir(cwd)
+    result = {"phase": "cli", "input": {"seconds": seconds, "sr": in_sr, "channels": 2},
+              "path": path, "sr": sr, "samples": int(y.shape[0]),
+              "expected_samples": expected, "peak": float(np.abs(y).max()),
+              "wall_s": wall, "realtime_factor": seconds / wall,
+              "compute_dtype": vc.engine.compute_dtype, "launches": launches,
+              "mp3": mp3, "card": smi}
+    emit(result)
+    voice_conversion._CONVERTER_CACHE.clear()
+    del vc
+    if path != os.path.join("output", "Voice_Converted.wav") or sr != 48000:
+        raise AssertionError(f"cli: wrote {path} at {sr} Hz")
+    if abs(int(y.shape[0]) - expected) > 480 or not np.isfinite(y).all() \
+            or not result["peak"] > 0.03:
+        raise AssertionError(f"cli: output {y.shape} peak {result['peak']}")
+    missing = [k for k in ("resblock_group", "conv_transpose", "band_attention",
+                           "unet_chain") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"cli: kernels never launched: {missing}")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -918,7 +1204,16 @@ def main() -> int:
     launches = dict(run["launches"])
     check_resblock_launches(run, "main path")
     check_unet_launches(run, "main path")
+    if not run["repeatable"]:
+        raise AssertionError("main path: two converts of the song differ")
+
+    # ---- batch covers, model files, the CLI ---------------------------------
+    batch_phase(vc, song, opts, wrappers, smi)
+    main_out = run["out"]
     del vc, run
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        checkpoint_phase(root, eng, song, opts, main_out, wrappers, smi)
+        cli_phase(root, wrappers, smi)
 
     # ---- mangio-crepe path -------------------------------------------------
     t0 = time.perf_counter()
@@ -1201,6 +1496,7 @@ def main() -> int:
             if name == "band_attention" else {})}
         for name in wrappers
     ]}
+    emit({"phase": "total"})
     emit(line)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,14 @@
-"""fairseq HuBERT state dict -> (HubertConfig, parameter dictionary).
+"""fairseq hubert_base.pt -> (HubertConfig, parameter dictionary).
 
-A direct state-dict conversion (no fairseq at runtime). Only the numpy
-conversion lives here; reading .pt files comes later.
+A direct state-dict conversion (no fairseq at runtime). The .pt pickle
+embeds fairseq/omegaconf config objects; a tolerant unpickler turns every
+class outside a short allow-list into an inert stub, since only the tensor
+state dict and the head count in the config matter.
 """
 
 from __future__ import annotations
+
+import pickle
 
 import numpy as np
 
@@ -13,6 +17,59 @@ from .common import fold_weight_norm, linear_params, norm_params, to_numpy
 
 
 _STANDARD_STRIDES = (5, 2, 2, 2, 2, 2, 2)
+
+
+class _Stub:
+    """Placeholder for the classes a checkpoint names outside the allow-list."""
+
+    def __init__(self, *a, **k):
+        pass
+
+    def __setstate__(self, state):
+        self.__dict__.update(state if isinstance(state, dict) else {})
+
+
+# Only these globals may resolve to real callables during checkpoint load;
+# anything else (fairseq/omegaconf configs, but also anything a crafted
+# upload could smuggle in) becomes an inert _Stub. Tensor data flows through
+# torch's persistent-id storage path, which does not use find_class, so this
+# list is all a state dict needs.
+_SAFE_GLOBALS = {
+    ("collections", "OrderedDict"),
+    ("torch._utils", "_rebuild_tensor"),
+    ("torch._utils", "_rebuild_tensor_v2"),
+    ("torch._utils", "_rebuild_parameter"),
+    ("torch._utils", "_rebuild_sparse_tensor"),
+    ("torch.serialization", "_get_layout"),
+    ("numpy.core.multiarray", "_reconstruct"),
+    ("numpy.core.multiarray", "scalar"),
+    ("numpy", "ndarray"),
+    ("numpy", "dtype"),
+}
+
+
+class _TolerantUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) in _SAFE_GLOBALS or (
+            module == "torch" and name.endswith("Storage")
+        ):
+            return super().find_class(module, name)
+        return _Stub
+
+
+class _TolerantPickleModule:
+    Unpickler = _TolerantUnpickler
+    load = staticmethod(pickle.load)
+
+
+def _tolerant_torch_load(path: str):
+    import torch
+
+    try:
+        return torch.load(path, map_location="cpu", weights_only=False,
+                          pickle_module=_TolerantPickleModule)
+    except Exception:
+        return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def _find_encoder_heads(obj, depth: int = 0):
@@ -135,3 +192,16 @@ def convert_hubert_state(sd: dict, cfg: HubertConfig | None = None):
     if "final_proj.weight" in sd:
         params["final_proj"] = linear_params(sd, "final_proj")
     return params
+
+
+def load_hubert_checkpoint(path: str):
+    """hubert_base.pt -> (HubertConfig, params). The architecture comes from
+    the state dict's shapes (so alternate embedders such as contentvec load
+    too), the head count from the checkpoint's cfg/args metadata."""
+    ckpt = _tolerant_torch_load(path)
+    sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+    heads = _find_encoder_heads(
+        {k: v for k, v in ckpt.items() if k in ("cfg", "args")}
+    ) if isinstance(ckpt, dict) else None
+    cfg = infer_hubert_config(sd, n_heads=heads)
+    return cfg, convert_hubert_state(sd, cfg)

@@ -16,7 +16,10 @@ def params_to_torch(tree, device="cpu", dtype=torch.float32):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_to_torch(v, device, dtype) for v in tree)
     if isinstance(tree, np.ndarray):
-        t = torch.from_numpy(np.ascontiguousarray(tree))
+        # a copy into torch's own memory: on the CPU, the numpy array's
+        # alignment would otherwise reach the matmul kernels, whose results
+        # can depend on it
+        t = torch.tensor(tree)
         t = t.to(dtype) if tree.dtype.kind == "f" else t.long()
         return t.to(device)
     return tree

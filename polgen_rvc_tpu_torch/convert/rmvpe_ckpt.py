@@ -114,3 +114,11 @@ def convert_rmvpe_state(sd: dict) -> dict:
             "b": to_numpy(sd["fc.1.bias"]).astype(np.float32),
         },
     }
+
+
+def load_rmvpe_checkpoint(path: str) -> dict:
+    """rmvpe.pt (a raw state dict) -> parameter dictionary."""
+    import torch
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return convert_rmvpe_state(sd)

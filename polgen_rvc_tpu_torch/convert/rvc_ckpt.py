@@ -5,8 +5,8 @@ Checkpoint schema (the upstream RVC get_vc): dict with
   weight:  state_dict (posterior encoder enc_q keys absent/dropped)
   f0:      pitch-guidance flag (default 1)
   version: "v1" (input_dim 256) | "v2" (input_dim 768)
-Weight norm is folded here.
-Only the numpy conversion lives here; reading .pth files comes later.
+The speaker count is patched from emb_g.weight's shape, as the upstream
+get_vc does. Weight norm is folded here.
 """
 
 from __future__ import annotations
@@ -155,3 +155,23 @@ def convert_synthesizer_state(sd: dict, cfg: SynthesizerConfig) -> dict:
         "dec": _convert_dec(sd, cfg),
         "emb_g": to_numpy(sd["emb_g.weight"]).astype(np.float32),
     }
+
+
+def load_rvc_checkpoint(path: str):
+    """Load an RVC .pth -> (cfg, params, tgt_sr)."""
+    import torch
+
+    cpt = torch.load(path, map_location="cpu", weights_only=True)
+    if "config" not in cpt or "weight" not in cpt:
+        raise ValueError(
+            f"Invalid checkpoint format for {path}: expected an RVC voice "
+            "model with 'config' and 'weight' entries."
+        )
+    config_list = list(cpt["config"])
+    # the speaker count comes from the embedding table
+    config_list[-3] = cpt["weight"]["emb_g.weight"].shape[0]
+    use_f0 = bool(cpt.get("f0", 1))
+    version = cpt.get("version", "v1")
+    cfg = build_config(config_list, use_f0=use_f0, version=version)
+    params = convert_synthesizer_state(cpt["weight"], cfg)
+    return cfg, params, cfg.sr

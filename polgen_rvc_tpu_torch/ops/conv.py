@@ -15,6 +15,7 @@ ops do.
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 
@@ -36,6 +37,15 @@ def conv2d(x, w, b=None, *, stride=1, padding=0, dilation=1, groups: int = 1):
 
 
 def conv_transpose2d(x, w, b=None, *, stride=1, padding=0, output_padding=0):
-    """x: (B, I, H, W), w: (I, O, KH, KW)."""
-    return F.conv_transpose2d(x, w.to(x.dtype), _bias(b, x), stride=stride,
-                              padding=padding, output_padding=output_padding)
+    """x: (B, I, H, W), w: (I, O, KH, KW). cuDNN runs it with a
+    deterministic algorithm: the one it picks otherwise for RMVPE's decoder
+    (stride 2) sums with atomics, and its result, and with it the F0 track
+    and the whole output, changed from run to run on the card."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        return F.conv_transpose2d(x, w.to(x.dtype), _bias(b, x), stride=stride,
+                                  padding=padding, output_padding=output_padding)
+    finally:
+        cudnn.deterministic = prev

@@ -1,25 +1,30 @@
 """The conversion engine: the port of polgen_rvc_tpu/pipeline/engine.py's
 ``VoiceConverter.convert`` on the rmvpe+, mangio-crepe and fcpe F0 paths
-and for no-f0 models, in eager PyTorch on one device.
+and for no-f0 models, in eager PyTorch on one device; ``convert_batch``
+(pipeline/batch_cover.py) packs chunks of several songs into its batches.
 
-Per song: host high-pass, reflect pad and int16 quantize (one upload);
-quiet-point chunk planning; one full-signal F0 pass (f0 models only):
-RMVPE (fp32), CREPE (conv operands in the compute dtype, decode in fp32)
-or FCPE (fp32). Per batch of ``chunk_batch`` chunks, padded to that
-batch's own bucket: HuBERT -> top-k retrieval blend -> 2x frame repeat ->
-protect mix (f0 models) -> synthesizer, then the pad trim. Last, the
-RMS-envelope gain, per-chunk int16 pack and the final normalize.
+Per song (``_prepare_song``): host high-pass, reflect pad and int16
+quantize (one upload, dequantized once on the device); quiet-point chunk
+planning; one full-signal F0 pass (f0 models only): RMVPE (fp32), CREPE
+(conv operands in the compute dtype, decode in fp32) or FCPE (fp32). Per
+batch of ``chunk_batch`` chunks, padded to that batch's own bucket
+(``_convert_rows``): HuBERT -> top-k retrieval blend -> 2x frame repeat ->
+protect mix (f0 models) -> synthesizer, then the pad trim; each row reads
+its samples and pitch from its own song. Last, per song
+(``_finish_song``): the RMS-envelope gain over the whole song, per-chunk
+int16 pack, the optional output resample and the final normalize.
 
 Semantics follow the JAX engine: the same buckets (``_batch_geometry``),
 row assembly (``_assemble_rows``), masks and trim, and noise drawn at the
-fixed ``_noise_frames()`` length per chunk id, so a chunk renders the same
-in any batch slot and bucket. Noise comes from a provider: by default a
-``torch.Generator`` seeded from (seed, chunk id); the tests inject the JAX
-package's own draws instead.
+fixed ``_noise_frames()`` length per song-local chunk id, so a chunk
+renders the same in any batch slot and bucket. Noise comes from a
+provider: by default a ``torch.Generator`` seeded from (seed, chunk id);
+the tests inject the JAX package's own draws instead.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
@@ -35,11 +40,13 @@ from ..models.synthesizer import SynthesizerConfig, synthesizer_infer
 from ..ops.f0_utils import coarse_f0, salience_to_f0
 from ..ops.filters import highpass_pad_quant
 from ..retrieval.topk import retrieval_blend
-from .chunking import plan_chunks
+from ..utils.progress import NULL_PROGRESS, ProgressReporter
+from .batch_cover import BatchCoverMixin, bucket_class
+from .chunking import ChunkPlan, plan_chunks
 from .config import ConversionOptions, EngineConfig
 from .crepe_method import crepe_f0
 from .fcpe_method import fcpe_f0, fcpe_f0_device
-from .output import change_rms, finalize_int16, pack_int16, rows_to_audio
+from .output import change_rms, host_finalize, pack_int16, rows_to_audio
 
 # (seed, chunk id, latent shape (C, frames), nsf length, device)
 #   -> (eps (C, frames), nsf noise (length,)), standard normal float32
@@ -56,7 +63,20 @@ def torch_noise(seed: int, chunk_id: int, lat_shape: tuple, nsf_len: int,
     return eps, nsf
 
 
-class VoiceConverter:
+@dataclasses.dataclass
+class SongPrep:
+    """One song on its way through the engine: the high-passed 16 kHz audio,
+    its chunk plan, the dequantized padded signal on the device and, for an
+    f0 model, its full-signal coarse pitch and pitchf on the device."""
+
+    audio: np.ndarray
+    plan: ChunkPlan
+    buf: torch.Tensor
+    pitch: Optional[torch.Tensor]
+    pitchf: Optional[torch.Tensor]
+
+
+class VoiceConverter(BatchCoverMixin):
     """Voice conversion over one (synthesizer, HuBERT, RMVPE, index) model
     set, plus CREPE weights for the mangio-crepe method and FCPE weights
     and config for fcpe. A no-f0 model (``synth_cfg.use_f0`` false) runs no
@@ -109,27 +129,25 @@ class VoiceConverter:
         bucket_step_s multiple that holds its own longest chunk."""
         eng = self.engine
         n = len(plan.chunks)
-        step = eng.bucket_step_s * eng.sample_rate
         batch_idxs = [list(range(g0, min(g0 + eng.chunk_batch, n)))
                       for g0 in range(0, n, eng.chunk_batch)]
-        batch_bucket = [
-            max(int(np.ceil((plan.chunks[ci].slice_end
-                             - plan.chunks[ci].slice_start) / step)) * step
-                for ci in idxs)
-            for idxs in batch_idxs
-        ]
+        batch_bucket = [max(bucket_class(plan.chunks[ci], eng) for ci in idxs)
+                        for idxs in batch_idxs]
         return batch_idxs, batch_bucket
 
-    def _assemble_rows(self, plan, idxs, p_len: int):
-        """Host arrays for one batch; rows past len(idxs) are padding."""
+    def _assemble_rows(self, entries, p_len: int):
+        """Host arrays for one batch from (chunk, song-local chunk id,
+        samples, pitch, pitchf) entries of any songs: samples is the row's
+        song's dequantized padded signal on the device, pitch and pitchf
+        its full-signal F0 (None for a no-f0 model). Rows past
+        len(entries) are padding."""
         eng = self.engine
         B = eng.chunk_batch
         rows = {name: np.zeros(B, np.int64) for name in
                 ("starts", "samp_starts", "samp_lens", "hub_valid", "ids")}
         mask = np.zeros((B, p_len), np.float32)
         valid_frames = []
-        for row, ci in enumerate(idxs):
-            c = plan.chunks[ci]
+        for row, (c, ci, _, _, _) in enumerate(entries):
             slice_len = c.slice_end - c.slice_start
             rows["samp_starts"][row] = c.slice_start
             rows["samp_lens"][row] = slice_len
@@ -142,6 +160,8 @@ class VoiceConverter:
             rows["ids"][row] = ci
         rows["mask"] = mask
         rows["valid_frames"] = valid_frames
+        rows["sources"] = [(samples, pitch, pitchf)
+                           for _, _, samples, pitch, pitchf in entries]
         return rows
 
     # ------------------------------------------------------------------
@@ -205,9 +225,8 @@ class VoiceConverter:
     # one chunk batch
     # ------------------------------------------------------------------
 
-    def _chunk_batch(self, buf, pitch_full, pitchf_full, rows, bucket: int,
-                     p_len: int, opts: ConversionOptions, use_index: bool,
-                     use_protect: bool):
+    def _chunk_batch(self, rows, bucket: int, p_len: int,
+                     opts: ConversionOptions, use_index: bool, use_protect: bool):
         """Rows of trimmed, valid-masked float32 audio (B, out_len)."""
         eng, dev, cdt = self.engine, self.device, self.compute_dtype
         B = eng.chunk_batch
@@ -216,21 +235,29 @@ class VoiceConverter:
         def put(a):
             return torch.as_tensor(a, device=dev)
 
-        samp_starts, samp_lens = put(rows["samp_starts"]), put(rows["samp_lens"])
-        span = torch.arange(bucket, device=dev)
-        buf_ext = torch.cat([buf, buf.new_zeros(bucket)])
-        wav = buf_ext[samp_starts[:, None] + span[None, :]]
-        wav = torch.where(span[None, :] < samp_lens[:, None], wav,
-                          torch.zeros_like(wav))
+        # each row's samples and F0 from its own song's device buffers
+        wav = torch.zeros(B, bucket, device=dev)
+        use_f0 = self.synth_cfg.use_f0
+        if use_f0:
+            pitch = torch.ones(B, p_len, dtype=torch.long, device=dev)
+            pitchf = torch.zeros(B, p_len, device=dev)
+        for row, (samples, pitch_full, pitchf_full) in enumerate(rows["sources"]):
+            s0 = int(rows["samp_starts"][row])
+            seg = samples[s0:s0 + int(rows["samp_lens"][row])]
+            wav[row, :seg.shape[0]] = seg
+            if use_f0:
+                f0 = int(rows["starts"][row])
+                seg = pitch_full[f0:f0 + p_len]
+                pitch[row, :seg.shape[0]] = seg
+                pitchf[row, :seg.shape[0]] = pitchf_full[f0:f0 + p_len]
+        samp_lens = put(rows["samp_lens"])
         frame_mask = put(rows["mask"])
-        pitch = pitchf = None
-        if pitch_full is not None:
-            cols = put(rows["starts"])[:, None] + torch.arange(p_len, device=dev)[None, :]
-            pitch = torch.cat([pitch_full, pitch_full.new_ones(p_len)])[cols]
-            pitchf = torch.cat([pitchf_full, pitchf_full.new_zeros(p_len)])[cols]
+        if use_f0:
             valid = frame_mask > 0
             pitch = torch.where(valid, pitch, torch.ones_like(pitch))
             pitchf = torch.where(valid, pitchf, torch.zeros_like(pitchf))
+        else:
+            pitch = pitchf = None
 
         v1 = self.version == "v1"
         n_layers = self.hubert_cfg.n_layers
@@ -277,48 +304,75 @@ class VoiceConverter:
         return torch.where(idx < nvalid[:, None], trimmed, torch.zeros_like(trimmed))
 
     # ------------------------------------------------------------------
-    # full pipeline
+    # per song, per batch, and the full pipeline
     # ------------------------------------------------------------------
 
-    @torch.inference_mode()
-    def convert(self, audio16k: np.ndarray,
-                opts: ConversionOptions = ConversionOptions()):
-        """Float mono 16 kHz -> (int16 audio, output sample rate)."""
-        if opts.f0_file or opts.resample_sr:
-            raise NotImplementedError("f0 files and output resampling are not ported yet")
-        eng, dev = self.engine, self.device
+    def _prepare_song(self, audio16k: np.ndarray, opts: ConversionOptions) -> SongPrep:
+        """High-pass, pad and quantize on the host, plan the chunks, upload
+        and dequantize the padded signal once, and run the F0 pass."""
+        eng = self.engine
         audio, qbuf, inv_scale, padded_len = highpass_pad_quant(
             np.asarray(audio16k, np.float64), eng.t_pad, eng.window
         )
         plan = plan_chunks(audio, eng)
-        buf = torch.from_numpy(qbuf).to(dev).float() * float(inv_scale)
-        use_f0 = self.synth_cfg.use_f0
-        pitch_full = pitchf_full = None
-        if use_f0:
-            pitch_full, pitchf_full = self.compute_f0(buf, opts, padded_len)
+        buf = torch.from_numpy(qbuf).to(self.device).float() * float(inv_scale)
+        pitch = pitchf = None
+        if self.synth_cfg.use_f0:
+            pitch, pitchf = self.compute_f0(buf, opts, padded_len)
+        return SongPrep(audio, plan, buf, pitch, pitchf)
 
+    def _convert_rows(self, entries, bucket: int, opts: ConversionOptions):
+        """One chunk batch padded to `bucket`: (chunk, song-local chunk id,
+        SongPrep) entries -> each entry's trimmed output samples on the
+        device (possibly empty)."""
+        eng = self.engine
+        p_len = min(bucket // eng.window, 2 * self.hubert_cfg.num_frames(bucket))
+        rows = self._assemble_rows(
+            [(c, ci, song.buf, song.pitch, song.pitchf) for c, ci, song in entries],
+            p_len)
+        use_f0 = self.synth_cfg.use_f0
         use_index = self.index_bank is not None and opts.index_rate > 0
         use_protect = use_f0 and opts.protect < 0.5
-        upp = self.synth_cfg.upp
+        out = self._chunk_batch(rows, bucket, p_len, opts, use_index, use_protect)
         t_pad_tgt = self.tgt_sr * eng.x_pad
-        segments = []
-        batch_idxs, batch_bucket = self._batch_geometry(plan)
-        for idxs, bucket in zip(batch_idxs, batch_bucket):
-            p_len = min(bucket // eng.window, 2 * self.hubert_cfg.num_frames(bucket))
-            rows = self._assemble_rows(plan, idxs, p_len)
-            out = self._chunk_batch(buf, pitch_full, pitchf_full, rows, bucket,
-                                    p_len, opts, use_index, use_protect)
-            for row, v in enumerate(rows["valid_frames"]):
-                n = max(v * upp - 2 * t_pad_tgt, 0)
-                if n:
-                    segments.append(out[row, :n])
+        upp = self.synth_cfg.upp
+        return [out[row, :max(v * upp - 2 * t_pad_tgt, 0)]
+                for row, v in enumerate(rows["valid_frames"])]
 
-        lens = [s.shape[0] for s in segments]
-        out = torch.cat(segments) if segments else buf.new_zeros(0)
+    def _finish_song(self, song: SongPrep, segments, opts: ConversionOptions):
+        """A song's chunk outputs in chunk order -> (int16 audio, rate): the
+        RMS-envelope gain over the whole song, the per-chunk int16 pack, and
+        on the host the optional resample and the final normalize."""
+        eng = self.engine
+        segments = [seg for seg in segments if seg.shape[0]]
+        lens = [seg.shape[0] for seg in segments]
+        out = torch.cat(segments) if segments else song.buf.new_zeros(0)
         if opts.volume_envelope != 1.0 and out.numel():
-            src = buf[eng.t_pad:eng.t_pad + audio.shape[0]]
+            src = song.buf[eng.t_pad:eng.t_pad + song.audio.shape[0]]
             out = change_rms(src, eng.sample_rate, out, self.tgt_sr,
                              float(opts.volume_envelope))
         packed = [pack_int16(seg) for seg in torch.split(out, lens)]
         host = [(seg.cpu().numpy(), float(am)) for seg, am in packed]
-        return finalize_int16(rows_to_audio(host)), self.tgt_sr
+        return host_finalize(rows_to_audio(host), self.tgt_sr, opts.resample_sr,
+                             eng.sample_rate)
+
+    @torch.inference_mode()
+    def convert(self, audio16k: np.ndarray,
+                opts: ConversionOptions = ConversionOptions(),
+                progress: ProgressReporter = NULL_PROGRESS):
+        """Float mono 16 kHz -> (int16 audio, output sample rate)."""
+        if opts.f0_file:
+            raise NotImplementedError("f0 files are not ported yet")
+        progress(0.05, "high-pass filtering and F0")
+        song = self._prepare_song(audio16k, opts)
+        segments = []
+        batch_idxs, batch_bucket = self._batch_geometry(song.plan)
+        for k, (idxs, bucket) in enumerate(zip(batch_idxs, batch_bucket)):
+            progress(0.2 + 0.6 * k / len(batch_idxs),
+                     f"converting chunk batch {k + 1}/{len(batch_idxs)}")
+            segments += self._convert_rows(
+                [(song.plan.chunks[ci], ci, song) for ci in idxs], bucket, opts)
+        progress(0.85, "RMS envelope and output")
+        result = self._finish_song(song, segments, opts)
+        progress(1.0, "done")
+        return result

@@ -1,4 +1,5 @@
-"""Output path: RMS-envelope gain, per-chunk int16 pack, final normalize.
+"""Output path: RMS-envelope gain, per-chunk int16 pack, optional
+resample, final normalize.
 
 Reproduces the upstream post-processing (change_rms, trim, int16 normalize)
 with the JAX package's semantics (pipeline/output.py there): the gain
@@ -9,6 +10,8 @@ holds the rows, with float64 sums.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -66,10 +69,21 @@ def rows_to_audio(packed) -> np.ndarray:
     return np.concatenate(parts) if parts else np.zeros(0, np.float32)
 
 
-def finalize_int16(audio: np.ndarray) -> np.ndarray:
-    """Peak-normalize to 0.99 only when the signal would clip, then int16."""
+def host_finalize(audio: np.ndarray, tgt_sr: int, resample_sr: int,
+                  sample_rate: int):
+    """The host tail (the JAX package's _host_finalize): scipy resample_poly
+    to resample_sr when resample_sr >= the pipeline rate and differs from
+    the model's, then int16. Returns (int16, rate)."""
+    out_sr = tgt_sr
+    if resample_sr >= sample_rate and resample_sr != tgt_sr:
+        from scipy.signal import resample_poly
+
+        g = math.gcd(tgt_sr, resample_sr)
+        audio = resample_poly(audio, resample_sr // g, tgt_sr // g)
+        out_sr = resample_sr
+    # peak-normalize to 0.99 only when the signal would clip
     audio_max = np.abs(audio).max() / 0.99 if audio.size else 0.0
     max_int16 = 32768.0
     if audio_max > 1:
         max_int16 /= audio_max
-    return (audio * max_int16).astype(np.int16)
+    return (audio * max_int16).astype(np.int16), out_sr

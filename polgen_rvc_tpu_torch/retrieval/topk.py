@@ -9,7 +9,16 @@ approximate top-k above 1,024 bank vectors.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def load_index_bank(index_path: str) -> np.ndarray:
+    """Parse a faiss .index file into the dense (N, d) float32 bank, in id
+    order."""
+    from ..convert.faiss_index import read_faiss_index
+
+    return read_faiss_index(index_path).vectors
 
 
 def topk_neighbours(feats, bank, k: int = 8):

@@ -479,3 +479,27 @@ def test_viterbi_rejects(dev, bad):
           "non-contiguous": lambda: torch.zeros(360, 8, device=dev).T}[bad]()
     with pytest.raises(ValueError):
         vt.viterbi_path(lo, 8)
+
+
+@pytest.mark.parametrize("c_in,c_out,t,w", [(512, 256, 225, 4), (64, 32, 1800, 32)])
+def test_rmvpe_conv_transpose2d_repeats_on_the_card(dev, no_tf32, c_in, c_out, t, w):
+    """RMVPE's decoder ConvTranspose2d (stride 2) at two of its levels gives
+    the same bits on every call, and leaves cuDNN's deterministic flag as it
+    found it (cuDNN's default choice here summed with atomics)."""
+    from polgen_rvc_tpu_torch.ops.conv import conv_transpose2d
+
+    rng = np.random.default_rng(0)
+    x = _t(rng.standard_normal((1, c_in, t, w)), dev)
+    wt = _t(rng.standard_normal((c_in, c_out, 3, 3)) / np.sqrt(9 * c_in), dev)
+    b = _t(rng.standard_normal(c_out) * 0.02, dev)
+    flag = torch.backends.cudnn.deterministic
+    outs = [conv_transpose2d(x, wt, b, stride=2, padding=1, output_padding=1)
+            for _ in range(4)]
+    assert torch.backends.cudnn.deterministic == flag
+    assert outs[0].shape == (1, c_out, 2 * t, 2 * w)
+    for y in outs[1:]:
+        assert torch.equal(y, outs[0])
+    ref = F.conv_transpose2d(x.cpu(), wt.cpu(), b.cpu(), stride=2, padding=1,
+                             output_padding=1)
+    # fp32 with TF32 off (as the entry points set it): summation order only
+    assert float((outs[0].cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
