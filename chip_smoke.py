@@ -25,8 +25,9 @@ exit code != 0):
   profile:     one more convert under torch.profiler: the device's busy
                and idle share of the wall time, and kernels by device time.
   batch:       convert_batch on the main path's converter over four songs
-               cut from the song (60, 41, 23 and 9 s), each chunk in its
-               own bucket class: launches per packed batch (resblock group
+               cut from the song (60, 41, 23 and 9 s), the chunks sorted by
+               bucket class and packed two rows a batch, each batch at its
+               largest chunk's bucket: launches per packed batch (resblock group
                36, conv-transpose 4, band attention 6) and per song (U-Net
                chain 112); each song against its serial convert (bytes
                where all its chunks ride the same buckets, else the
@@ -908,13 +909,17 @@ def batch_phase(vc, song, opts, wrappers, smi, seconds=(60, 41, 23, 9)) -> dict:
     difference into its neighbours' samples)."""
     import torch
 
-    from polgen_rvc_tpu_torch.pipeline.batch_cover import bucket_class, pack_work
+    from polgen_rvc_tpu_torch.pipeline.batch_cover import pack_work
     from polgen_rvc_tpu_torch.utils.metrics import mel_distortion_db
 
     eng = vc.engine
     songs = [song[:s * eng.sample_rate] for s in seconds]
     plans = [vc._prepare_song(x, opts).plan for x in songs]
     work = pack_work(plans, eng)
+    packed_bucket = [[0] * len(plan.chunks) for plan in plans]
+    for bk, group in work:
+        for si, ci in group:
+            packed_bucket[si][ci] = bk
     serial_bucket = []
     for plan in plans:
         by_chunk = {}
@@ -960,8 +965,7 @@ def batch_phase(vc, song, opts, wrappers, smi, seconds=(60, 41, 23, 9)) -> dict:
             "unet_chain": 112 * n_songs, "viterbi": 0}
     per_song = []
     for si, (plan, (out, sr), (ref, ref_sr)) in enumerate(zip(plans, packed, serial)):
-        packed_bucket = [bucket_class(c, eng) for c in plan.chunks]
-        same = packed_bucket == serial_bucket[si]
+        same = packed_bucket[si] == serial_bucket[si]
         if sr != ref_sr or out.shape != ref.shape:
             raise AssertionError(f"batch song {si}: {out.shape} @ {sr} against "
                                  f"{ref.shape} @ {ref_sr}")
@@ -970,7 +974,7 @@ def batch_phase(vc, song, opts, wrappers, smi, seconds=(60, 41, 23, 9)) -> dict:
                    "serial_bucket_s": sb / eng.sample_rate,
                    "max_abs_diff": int(d[a:e].max()) if e > a else 0,
                    "share_differing": float((d[a:e] > 0).mean()) if e > a else 0.0}
-                  for pb, sb, (a, e) in zip(packed_bucket, serial_bucket[si],
+                  for pb, sb, (a, e) in zip(packed_bucket[si], serial_bucket[si],
                                             chunk_spans(vc, plan))]
         entry = {"seconds": seconds[si], "chunks": chunks, "same_buckets": same,
                  "identical": bool(np.array_equal(out, ref)),

@@ -57,9 +57,18 @@ class _TolerantUnpickler(pickle.Unpickler):
         return _Stub
 
 
+def _tolerant_load(f, **kwargs):
+    return _TolerantUnpickler(f, **kwargs).load()
+
+
 class _TolerantPickleModule:
+    """The pickle module torch.load is given. Every pickle it reads goes
+    through the allow-list: a file that is not a zip archive takes
+    torch.load's legacy route, which reads its header pickles with this
+    module's load before any check."""
+
     Unpickler = _TolerantUnpickler
-    load = staticmethod(pickle.load)
+    load = staticmethod(_tolerant_load)
 
 
 def _tolerant_torch_load(path: str):

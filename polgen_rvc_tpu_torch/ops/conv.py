@@ -15,8 +15,13 @@ ops do.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F
+
+
+_CUDNN_FLAG_LOCK = threading.Lock()
 
 
 def _bias(b, x):
@@ -40,12 +45,18 @@ def conv_transpose2d(x, w, b=None, *, stride=1, padding=0, output_padding=0):
     """x: (B, I, H, W), w: (I, O, KH, KW). cuDNN runs it with a
     deterministic algorithm: the one it picks otherwise for RMVPE's decoder
     (stride 2) sums with atomics, and its result, and with it the F0 track
-    and the whole output, changed from run to run on the card."""
+    and the whole output, changed from run to run on the card.
+
+    The flag is process-global. A lock holds it across the call, so calls
+    from two threads (converters shared by a server) cannot restore it
+    under each other; code elsewhere that sets the flag from another
+    thread meanwhile is not guarded."""
     cudnn = torch.backends.cudnn
-    prev = cudnn.deterministic
-    cudnn.deterministic = True
-    try:
-        return F.conv_transpose2d(x, w.to(x.dtype), _bias(b, x), stride=stride,
-                                  padding=padding, output_padding=output_padding)
-    finally:
-        cudnn.deterministic = prev
+    with _CUDNN_FLAG_LOCK:
+        prev = cudnn.deterministic
+        cudnn.deterministic = True
+        try:
+            return F.conv_transpose2d(x, w.to(x.dtype), _bias(b, x), stride=stride,
+                                      padding=padding, output_padding=output_padding)
+        finally:
+            cudnn.deterministic = prev

@@ -3,12 +3,21 @@ the port of the JAX package's pipeline/batch_cover.py.
 
 Each song is prepared as ``convert`` prepares it (host high-pass, pad and
 quantize, chunk plan, one F0 pass on the device); then a global work list
-of (song, chunk) pairs, grouped by each chunk's own bucket class, runs
-``chunk_batch`` rows at a time; then each song's rows, in chunk order, take
-the whole-song RMS gain, int16 pack and host finalize that ``convert``
-applies. Noise is drawn per (seed, song-local chunk id), so a row renders
-the same whatever rides beside it: a song whose chunks ride the buckets
-they ride in ``convert`` comes out byte for byte as ``convert`` gives it.
+of (song, chunk) pairs, sorted by each chunk's own bucket class, runs
+``chunk_batch`` rows at a time, each batch padded to its largest chunk;
+then each song's rows, in chunk order, take the whole-song RMS gain, int16
+pack and host finalize that ``convert`` applies. Noise is drawn per (seed,
+song-local chunk id), so a row renders the same whatever rides beside it:
+a song whose chunks ride the buckets they ride in ``convert`` comes out
+byte for byte as ``convert`` gives it. A chunk on a larger bucket differs
+by rounding only: the masked models are pad-invariant, but a library
+convolution may pick its algorithm by length (on the card the decoder's
+conv_pre does, and the output then moves by a few bf16 steps).
+
+The JAX package groups chunks by bucket class instead, which bounds the
+shapes XLA compiles. Eager PyTorch compiles nothing per shape, so the
+port fills the rows that grouping would leave empty: a batch's work
+scales with its bucket times ``chunk_batch`` rows, real or not.
 
 Every F0 method packs: the port's F0 pass is one device call per song for
 rmvpe+, mangio-crepe and fcpe alike (the JAX package converts crepe and
@@ -31,15 +40,18 @@ def bucket_class(chunk, engine) -> int:
 
 def pack_work(plans, engine) -> list:
     """Chunk plans of several songs -> [(bucket, [(song, chunk id), ...]), ...]:
-    each chunk in its own bucket class, smallest class first, each class's
-    chunks in song then chunk order, chunk_batch at a time."""
-    by_bucket: dict = {}
-    for si, plan in enumerate(plans):
-        for ci, c in enumerate(plan.chunks):
-            by_bucket.setdefault(bucket_class(c, engine), []).append((si, ci))
+    every chunk sorted by its bucket class, largest first (ties in song
+    then chunk order), cut chunk_batch at a time, each batch padded to its
+    first chunk's class. That is the fewest batches, and of the ways to
+    fill that many, the one with the least bucket length summed over them:
+    only the last batch can have empty rows, and it holds the smallest
+    chunks."""
+    work = sorted(((bucket_class(c, engine), si, ci)
+                   for si, plan in enumerate(plans)
+                   for ci, c in enumerate(plan.chunks)),
+                  key=lambda w: (-w[0], w[1], w[2]))
     B = engine.chunk_batch
-    return [(bucket, work[g0:g0 + B])
-            for bucket, work in sorted(by_bucket.items())
+    return [(work[g0][0], [(si, ci) for _, si, ci in work[g0:g0 + B]])
             for g0 in range(0, len(work), B)]
 
 

@@ -139,15 +139,21 @@ class VoiceConverter(BatchCoverMixin):
         """Host arrays for one batch from (chunk, song-local chunk id,
         samples, pitch, pitchf) entries of any songs: samples is the row's
         song's dequantized padded signal on the device, pitch and pitchf
-        its full-signal F0 (None for a no-f0 model). Rows past
-        len(entries) are padding."""
+        its full-signal F0 (None for a no-f0 model). ``sources`` holds the
+        batch's distinct songs' (samples, pitch, pitchf) and ``song`` each
+        row's index into it. Rows past len(entries) are padding."""
         eng = self.engine
         B = eng.chunk_batch
         rows = {name: np.zeros(B, np.int64) for name in
-                ("starts", "samp_starts", "samp_lens", "hub_valid", "ids")}
+                ("starts", "samp_starts", "samp_lens", "hub_valid", "ids", "song")}
         mask = np.zeros((B, p_len), np.float32)
         valid_frames = []
-        for row, (c, ci, _, _, _) in enumerate(entries):
+        sources, source_of = [], {}
+        for row, (c, ci, samples, pitch, pitchf) in enumerate(entries):
+            if id(samples) not in source_of:
+                source_of[id(samples)] = len(sources)
+                sources.append((samples, pitch, pitchf))
+            rows["song"][row] = source_of[id(samples)]
             slice_len = c.slice_end - c.slice_start
             rows["samp_starts"][row] = c.slice_start
             rows["samp_lens"][row] = slice_len
@@ -160,8 +166,7 @@ class VoiceConverter(BatchCoverMixin):
             rows["ids"][row] = ci
         rows["mask"] = mask
         rows["valid_frames"] = valid_frames
-        rows["sources"] = [(samples, pitch, pitchf)
-                           for _, _, samples, pitch, pitchf in entries]
+        rows["sources"] = sources
         return rows
 
     # ------------------------------------------------------------------
@@ -235,22 +240,23 @@ class VoiceConverter(BatchCoverMixin):
         def put(a):
             return torch.as_tensor(a, device=dev)
 
-        # each row's samples and F0 from its own song's device buffers
-        wav = torch.zeros(B, bucket, device=dev)
+        # one gather of each row's samples and F0 from its own song: the
+        # batch's songs laid end to end, each followed by a bucket of zero
+        # samples and p_len frames of unvoiced pitch
+        srcs, song = rows["sources"], rows["song"]
         use_f0 = self.synth_cfg.use_f0
-        if use_f0:
-            pitch = torch.ones(B, p_len, dtype=torch.long, device=dev)
-            pitchf = torch.zeros(B, p_len, device=dev)
-        for row, (samples, pitch_full, pitchf_full) in enumerate(rows["sources"]):
-            s0 = int(rows["samp_starts"][row])
-            seg = samples[s0:s0 + int(rows["samp_lens"][row])]
-            wav[row, :seg.shape[0]] = seg
-            if use_f0:
-                f0 = int(rows["starts"][row])
-                seg = pitch_full[f0:f0 + p_len]
-                pitch[row, :seg.shape[0]] = seg
-                pitchf[row, :seg.shape[0]] = pitchf_full[f0:f0 + p_len]
+        span = torch.arange(bucket, device=dev)
+        base = np.cumsum([0] + [x.shape[0] + bucket for x, _, _ in srcs])
+        buf_ext = torch.cat([t for x, _, _ in srcs for t in (x, x.new_zeros(bucket))])
+        wav = buf_ext[put(base[song] + rows["samp_starts"])[:, None] + span[None, :]]
         samp_lens = put(rows["samp_lens"])
+        wav = torch.where(span[None, :] < samp_lens[:, None], wav, torch.zeros_like(wav))
+        if use_f0:
+            fbase = np.cumsum([0] + [p.shape[0] + p_len for _, p, _ in srcs])
+            cols = (put(fbase[song] + rows["starts"])[:, None]
+                    + torch.arange(p_len, device=dev)[None, :])
+            pitch = torch.cat([t for _, p, _ in srcs for t in (p, p.new_ones(p_len))])[cols]
+            pitchf = torch.cat([t for _, _, f in srcs for t in (f, f.new_zeros(p_len))])[cols]
         frame_mask = put(rows["mask"])
         if use_f0:
             valid = frame_mask > 0

@@ -20,7 +20,7 @@ from polgen_rvc_tpu.pipeline.config import (
 from polgen_rvc_tpu.pipeline.factory import build_synthetic_converter as jax_synthetic
 from polgen_rvc_tpu.utils.metrics import mel_distortion_db
 from polgen_rvc_tpu_torch.ops.filters import highpass_pad_quant
-from polgen_rvc_tpu_torch.pipeline.batch_cover import bucket_class
+from polgen_rvc_tpu_torch.pipeline.batch_cover import bucket_class, pack_work
 from polgen_rvc_tpu_torch.pipeline.chunking import plan_chunks
 from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions, EngineConfig
 from polgen_rvc_tpu_torch.pipeline.factory import build_synthetic_converter
@@ -53,8 +53,34 @@ def one_intra_op_thread():
 
 def _plan(vc, song):
     """The chunk plan convert makes for a song (no F0 pass)."""
-    audio = highpass_pad_quant(song, vc.engine.t_pad)[0]
-    return plan_chunks(audio, vc.engine)
+    eng = vc.engine
+    audio = highpass_pad_quant(np.asarray(song, np.float64), eng.t_pad, eng.window)[0]
+    return plan_chunks(audio, eng)
+
+
+def _assert_like_serial(vc, songs, outs, opts):
+    """Each packed song against its serial convert: byte for byte where
+    every one of its chunks rides the bucket it rides in convert, else the
+    JAX tests' bound for chunks on different buckets (within 1 int16 count
+    on < 1% of samples). Returns which songs were held to their bytes."""
+    plans = [_plan(vc, song) for song in songs]
+    packed = {}
+    for bucket, group in pack_work(plans, vc.engine):
+        packed.update({key: bucket for key in group})
+    exact = []
+    for si, ((out, sr), song, plan) in enumerate(zip(outs, songs, plans)):
+        ref, ref_sr = vc.convert(song, opts)
+        assert sr == ref_sr and out.shape == ref.shape
+        serial = {ci: bucket for idxs, bucket in zip(*vc._batch_geometry(plan))
+                  for ci in idxs}
+        exact.append(all(packed[si, ci] == serial[ci] for ci in serial))
+        if exact[-1]:
+            np.testing.assert_array_equal(out, ref)
+        else:
+            d = np.abs(out.astype(np.int32) - ref.astype(np.int32))
+            assert d.max() <= 1, d.max()
+            assert (d > 0).mean() < 0.01, (d > 0).mean()
+    return exact
 
 
 @pytest.fixture(scope="module")
@@ -98,21 +124,30 @@ def test_two_songs_share_one_dispatch_and_equal_serial(port_vc):
 def test_chunks_ride_their_own_buckets(port_vc):
     """Mirrors tests/test_pipeline.py:384-420: an 18 s and a 5 s song; at
     least one batch runs below the largest bucket of a song riding in it,
-    and each song stays within 1 int16 count of its serial convert on < 1%
-    of samples (the JAX tests' bound for chunks on different buckets)."""
+    the four chunks, sorted by bucket class, fill two batches, and each song
+    stays within the JAX tests' cross-bucket bound of its serial convert."""
     songs = [_song(18.0, seed=41), _song(5.0, seed=42)]
     opts = ConversionOptions(**BENCH_OPTS, seed=7)
     outs, seen = _convert_batch_spied(port_vc, songs, opts)
     song_max = [max(port_vc._batch_geometry(_plan(port_vc, song))[1]) for song in songs]
     assert min(b for b, _ in seen) < max(song_max), (
         f"no batch below a song's largest bucket {song_max}: {[b for b, _ in seen]}")
-    assert len(seen) >= 3
-    for (out, sr), song in zip(outs, songs):
-        ref, ref_sr = port_vc.convert(song, opts)
-        assert sr == ref_sr and out.shape == ref.shape
-        d = np.abs(out.astype(np.int32) - ref.astype(np.int32))
-        assert d.max() <= 1, d.max()
-        assert (d > 0).mean() < 0.01, (d > 0).mean()
+    assert [int(real.sum()) for _, real in seen] == [2, 2]
+    _assert_like_serial(port_vc, songs, outs, opts)
+
+
+def test_a_chunk_rides_a_larger_bucket_than_its_class(port_vc):
+    """A 3 s and a 7 s song, one chunk each of classes 6 and 10 s: both ride
+    one batch at 10 s, so the 3 s song's chunk runs on a larger bucket than
+    in its serial convert, and stays within the cross-bucket bound."""
+    songs = [_song(3.0, seed=51), _song(7.0, seed=52)]
+    step = port_vc.engine.bucket_step_s * port_vc.engine.sample_rate
+    assert [bucket_class(c, port_vc.engine) // step
+            for song in songs for c in _plan(port_vc, song).chunks] == [3, 5]
+    opts = ConversionOptions(**BENCH_OPTS, seed=7)
+    outs, seen = _convert_batch_spied(port_vc, songs, opts)
+    assert [(b // step, int(real.sum())) for b, real in seen] == [(5, 2)]
+    assert _assert_like_serial(port_vc, songs, outs, opts) == [False, True]
 
 
 def test_bucket_class_is_the_smallest_bucket_that_holds_a_chunk(port_vc):
@@ -149,22 +184,19 @@ def test_nof0_songs_pack_and_equal_serial():
     songs = [_song(2.0, seed=61), _song(3.0, seed=62)]
     opts = ConversionOptions(volume_envelope=0.25)
     outs = vc.convert_batch(songs, opts)
-    for (out, sr), song in zip(outs, songs):
-        ref, ref_sr = vc.convert(song, opts)
-        assert sr == ref_sr == 48000
-        np.testing.assert_array_equal(out, ref)
+    assert [sr for _, sr in outs] == [48000, 48000]
+    _assert_like_serial(vc, songs, outs, opts)
 
 
 def test_fcpe_songs_pack_and_equal_serial():
     """fcpe songs pack too (the port's F0 pass is one device call for every
-    method): one chunk each, byte-equal to serial."""
+    method): one chunk each in one batch, like their serial converts."""
     vc = build_synthetic_converter(tiny=True, sr=48000, with_fcpe=True,
                                    engine=EngineConfig(**BATCH_ENGINE), device="cpu")
     songs = [_song(2.0, seed=71), _song(3.0, seed=72)]
     opts = ConversionOptions(f0_method="fcpe", volume_envelope=0.25)
     outs = vc.convert_batch(songs, opts)
-    for (out, _), song in zip(outs, songs):
-        np.testing.assert_array_equal(out, vc.convert(song, opts)[0])
+    _assert_like_serial(vc, songs, outs, opts)
 
 
 def test_empty_list_and_f0_file(port_vc):
@@ -205,3 +237,36 @@ def test_conv_transpose2d_restores_the_cudnn_flag():
             torch.backends.cudnn.deterministic = False
         assert torch.equal(y, torch.nn.functional.conv_transpose2d(
             x, w, None, stride=2, padding=1, output_padding=1))
+
+
+def test_conv_transpose2d_holds_the_cudnn_flag_across_threads(monkeypatch):
+    """Two threads' conv-transposes overlapping: each call runs with the
+    flag set from start to end, and the flag is back to False after both
+    (a call restoring it under another would leave one of them without
+    it, or leave it set)."""
+    import threading
+    import time
+
+    from polgen_rvc_tpu_torch.ops import conv
+
+    seen = []
+
+    def slow_conv(x, *a, **k):
+        start = torch.backends.cudnn.deterministic
+        time.sleep(0.05)
+        seen.append((start, torch.backends.cudnn.deterministic))
+        return x
+
+    monkeypatch.setattr(conv.F, "conv_transpose2d", slow_conv)
+    torch.backends.cudnn.deterministic = False
+    x, w = torch.zeros(1, 2, 3, 3), torch.zeros(2, 2, 3, 3)
+    threads = [threading.Thread(target=conv.conv_transpose2d, args=(x, w))
+               for _ in range(2)]
+    for t in threads:
+        t.start()
+        time.sleep(0.01)
+    for t in threads:
+        t.join(timeout=10)
+        assert not t.is_alive()
+    assert seen == [(True, True), (True, True)]
+    assert torch.backends.cudnn.deterministic is False

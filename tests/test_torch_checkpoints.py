@@ -150,6 +150,28 @@ def test_tolerant_unpickler_calls_nothing(tmp_path):
     assert not marker.exists()
 
 
+@pytest.mark.parametrize("layout", ["raw pickle", "legacy torch.save"])
+def test_tolerant_loader_guards_every_pickle(tmp_path, layout):
+    """A file that is not a zip archive takes torch.load's legacy route,
+    which reads its header pickles with the pickle module's own load: a
+    raw pickle naming os.system, or one inside a legacy-format file, runs
+    nothing either."""
+    marker = tmp_path / "pwned"
+    path = str(tmp_path / "evil.pt")
+    if layout == "raw pickle":
+        with open(path, "wb") as f:
+            f.write(pickle.dumps(_Exploit(marker)))
+        with pytest.raises(Exception):
+            _tolerant_torch_load(path)
+    else:
+        torch.save({"model": {"w": torch.ones(3)}, "cfg": _Exploit(marker)}, path,
+                   _use_new_zipfile_serialization=False)
+        ckpt = _tolerant_torch_load(path)
+        assert isinstance(ckpt["cfg"], _Stub)
+        assert torch.equal(ckpt["model"]["w"], torch.ones(3))
+    assert not marker.exists()
+
+
 def test_rmvpe_checkpoint_matches_jax_loader(tmp_path):
     paths = write_synthetic_files(str(tmp_path), "v", tiny=True)
     assert_trees_equal(load_rmvpe_checkpoint(paths["rmvpe"]),
