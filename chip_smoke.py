@@ -8,7 +8,9 @@ model and a v1 32 kHz model, and holds each of the five kernels against
 its plain twin. Phases, each printing one JSON line (any failure raises;
 exit code != 0):
   1. card:     nvidia-smi name and power limit, torch/CUDA versions, the
-               parallel nvcc build of every kernel from csrc/ and its time.
+               parallel nvcc build of every kernel from csrc/ and its time,
+               and the g++ build of the native FLAC codec and effects
+               chain (native/) into build/native/ and its time.
   2. main:     the main path, as bench.py times it on an accelerator:
                build_synthetic_converter(tiny=False, sr=48000,
                index_vectors=65536, bf16 engine at bench's tiers) and
@@ -29,11 +31,20 @@ exit code != 0):
                bucket class and packed two rows a batch, each batch at its
                largest chunk's bucket: launches per packed batch (resblock group
                36, conv-transpose 4, band attention 6) and per song (U-Net
-               chain 112); each song against its serial convert (bytes
-               where all its chunks ride the same buckets, else the
-               difference printed and < 0.5 dB); wall, RTF and kernel time
-               of the packed call and of the four serial converts, peak
-               memory.
+               chain 112); every song equal to its serial convert byte for
+               byte, also where a chunk rides another bucket packed (the
+               decoder's conv_pre runs at one fixed length); wall, RTF and
+               kernel time of the packed call and of the four serial
+               converts, peak memory; conv_pre's time at each packed
+               bucket's frames, at the fixed length and at its own.
+  f0_file:     the main path's converter with an F0 file of 10 ms lines
+               covering 20 s: the coarse pitch over the overridden frames
+               equals the host coarse_f0_np of the file's interpolation
+               exactly; one warm-up, the counts set to 0, a timed convert
+               of the 60 s song (the main path's launches), which repeats
+               the warm-up's bytes; its profile; then convert_batch over
+               the batch phase's songs with the file, each song equal to
+               its serial convert byte for byte.
   checkpoint:  the main path's model set written as files (torch.save'd
                RVC .pth, fairseq-layout HuBERT, RMVPE state dict, a
                65,536-vector IVF-Flat index) into a temporary directory,
@@ -46,6 +57,18 @@ exit code != 0):
                48 kHz, of the planned length within one frame, not silent,
                every main-path kernel launched; then -f mp3 (libmp3lame or
                the WAV fallback).
+  cover:       the cover maker's path through the app modules, in that
+               directory: upload_zip_file of a zip holding the checkpoint
+               phase's .pth and .index; voice_pipeline on the cli phase's
+               WAV with output_format="flac" (counts set to 0 before, the
+               main-path kernels launched); process_audio of that vocal
+               and a synthetic 20 s 44.1 kHz stereo instrumental with the
+               effects on (reverb, compressor and chorus away from
+               neutral), output_format="flac". Both files must be FLAC
+               (magic fLaC) that the port's codec decodes at 48 kHz (the
+               vocal mono, the mix stereo and as long as the vocal), the
+               vocal to the int16 samples written, bit for bit. Each
+               step's host seconds.
   crepe:       the same, with full-width CREPE weights
                (with_crepe=True) and f0_method="mangio-crepe" at hop 128:
                viterbi launches exactly once a convert, the resblock group
@@ -115,7 +138,9 @@ line, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -960,6 +985,7 @@ def batch_phase(vc, song, opts, wrappers, smi, seconds=(60, 41, 23, 9)) -> dict:
     packed_prof = profile_call(lambda: vc.convert_batch(songs, opts))
     serial_prof = profile_call(lambda: [vc.convert(x, opts) for x in songs])
 
+    conv_pre_ms = conv_pre_times(vc, sorted(set(batches)))
     b, n_songs = len(batches), len(songs)
     want = {"resblock_group": 36 * b, "conv_transpose": 4 * b, "band_attention": 6 * b,
             "unet_chain": 112 * n_songs, "viterbi": 0}
@@ -995,7 +1021,8 @@ def batch_phase(vc, song, opts, wrappers, smi, seconds=(60, 41, 23, 9)) -> dict:
               "serial_kernel_ms": serial_prof["device_busy_ms"],
               "packed_profiled_wall_ms": packed_prof["wall_ms"],
               "serial_profiled_wall_ms": serial_prof["wall_ms"],
-              "max_memory_allocated": peak, "songs": per_song, "card": smi}
+              "max_memory_allocated": peak, "songs": per_song,
+              "conv_pre_ms": conv_pre_ms, "card": smi}
     emit(result)
     if launches != want:
         raise AssertionError(f"batch: launches {launches}, expected {want}")
@@ -1005,13 +1032,119 @@ def batch_phase(vc, song, opts, wrappers, smi, seconds=(60, 41, 23, 9)) -> dict:
         raise AssertionError("batch: no batch mixed songs")
     if not any(bk < max(serial_bucket[si]) for bk, g in work for si, _ in g):
         raise AssertionError("batch: no batch ran below a song's largest bucket")
+    if all(entry["same_buckets"] for entry in per_song):
+        raise AssertionError("batch: no chunk rode another bucket packed than serial")
     for entry in per_song:
-        if entry["same_buckets"] and not entry["identical"]:
-            raise AssertionError(f"batch: the {entry['seconds']} s song rode the same "
-                                 "buckets packed and serial but its bytes differ")
-        if entry["peak_int16"] < 1000 or not entry["mel_distortion_db"] < 0.5:
-            raise AssertionError(f"batch: the {entry['seconds']} s song: {entry}")
+        if not entry["identical"]:
+            raise AssertionError(f"batch: the {entry['seconds']} s song differs from "
+                                 f"its serial convert: {entry}")
+        if entry["peak_int16"] < 1000:
+            raise AssertionError(f"batch: the {entry['seconds']} s song is silent")
     return result
+
+
+F0_FILE_SECONDS = 20
+
+
+def write_f0_file(path: str, seconds: int = F0_FILE_SECONDS):
+    """An F0 file of 10 ms "time,Hz" lines covering `seconds`: half-second
+    notes stepping up a scale from 220 Hz, with a 5 Hz vibrato. Returns the
+    (times, Hz) written, as float32 the way the engine parses them."""
+    t = np.arange(seconds * 100) / 100
+    hz = (220.0 * 2.0 ** ((np.floor(t / 0.5) % 8) / 12.0)
+          * (1.0 + 0.01 * np.sin(2 * np.pi * 5.0 * t)))
+    with open(path, "w") as f:
+        f.write("\n".join(f"{a:.2f},{b:.4f}" for a, b in zip(t, hz)))
+    data = np.loadtxt(path, delimiter=",", dtype=np.float32)
+    return data[:, 0], data[:, 1]
+
+
+def f0_file_phase(vc, song, opts, main_out, wrappers, smi,
+                  seconds=(60, 41, 23, 9)) -> dict:
+    """The main path's converter with an F0 file of 10 ms lines covering
+    20 s (pipeline/f0_file.py). The song's coarse pitch over the file's
+    frames (from x_pad * 100 on) must equal coarse_f0_np of the file's own
+    np.interp onto the frames, computed here on the host; one warm-up, the
+    counts set to 0, a timed convert (drive), which must launch as the
+    main path does and repeat its bytes, and differ from the main path's
+    output; its profile; then convert_batch over the batch phase's songs
+    with the file, each song byte-equal to its serial convert."""
+    import torch
+
+    from polgen_rvc_tpu_torch.ops.filters import highpass_pad_quant
+    from polgen_rvc_tpu_torch.pipeline.f0_file import coarse_f0_np
+
+    eng = vc.engine
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f0_") as tmp:
+        path = os.path.join(tmp, "f0.txt")
+        times, hz = write_f0_file(path)
+        fopts = dataclasses.replace(opts, f0_file=path)
+        tf0 = eng.sample_rate // eng.window
+        start = eng.x_pad * tf0
+        p_len = highpass_pad_quant(song, eng.t_pad, eng.window)[3] // eng.window
+        n = int(np.round((times.max() - times.min()) * tf0 + 1))
+        interp = np.interp(np.arange(n), times * 100, hz).astype(np.float32)
+        stop = min(start + n, p_len)
+        want = coarse_f0_np(interp[:stop - start].copy(), opts.f0_min, opts.f0_max)
+        prep = vc._prepare_song(song, fopts)
+        got = prep.pitch[start:stop].cpu().numpy()
+        got_hz = prep.pitchf[start:stop].cpu().numpy()
+        run = drive(vc, song, fopts, wrappers)
+        profile = profile_convert(vc, song, fopts)
+        songs = [song[:s * eng.sample_rate] for s in seconds]
+        t0 = time.perf_counter()
+        packed = vc.convert_batch(songs, fopts)
+        torch.cuda.synchronize()
+        packed_s = time.perf_counter() - t0
+        serial = [vc.convert(x, fopts) for x in songs]
+    per_song = [{"seconds": s, "identical": bool(np.array_equal(out, ref)),
+                 "max_abs_diff": int(np.abs(out.astype(np.int32) - ref.astype(np.int32)).max())
+                 if out.shape == ref.shape else None}
+                for s, (out, _), (ref, _) in zip(seconds, packed, serial)]
+    result = {"phase": "f0_file", "file_seconds": F0_FILE_SECONDS, "file_lines": int(times.size),
+              "override_frames": [start, stop], "coarse_exact": bool(np.array_equal(got, want)),
+              "pitchf_exact": bool(np.array_equal(got_hz, interp[:stop - start])),
+              "voiced_bins": sorted(set(int(b) for b in want)),
+              **{k: v for k, v in run.items() if k != "out"},
+              "out_samples": int(run["out"].shape[0]),
+              "differs_from_main": not np.array_equal(run["out"], main_out),
+              "kernel_ms": profile["device_busy_ms"], "profiled_wall_ms": profile["wall_ms"],
+              "batch_songs_s": list(seconds), "batch_packed_wall_s": packed_s,
+              "batch": per_song, "card": smi}
+    emit(result)
+    if not (result["coarse_exact"] and result["pitchf_exact"]):
+        raise AssertionError("f0_file: the overridden frames are not the file's")
+    check_output(run, main_out.shape[0], "f0_file path",
+                 launched=("resblock_group", "conv_transpose", "band_attention",
+                           "unet_chain"), idle=("viterbi",))
+    check_resblock_launches(run, "f0_file path")
+    check_unet_launches(run, "f0_file path")
+    if not run["repeatable"] or not result["differs_from_main"]:
+        raise AssertionError(f"f0_file: repeatable {run['repeatable']}, "
+                             f"differs from main {result['differs_from_main']}")
+    if not all(e["identical"] for e in per_song):
+        raise AssertionError(f"f0_file: packed songs differ from serial: {per_song}")
+    return result
+
+
+def conv_pre_times(vc, buckets) -> dict:
+    """The decoder's conv_pre on two rows of bf16 input at each bucket's
+    frames: at the engine's fixed length (the route the decoder takes) and
+    at the row's own length (cuDNN's choice per length), in ms a call."""
+    import torch
+
+    from polgen_rvc_tpu_torch.models.nsf import conv_pre
+
+    conv = vc.synth_params["dec"]["conv_pre"]
+    fixed = vc._noise_frames()
+    out = {"fixed_frames": fixed}
+    for bucket in buckets:
+        p_len = min(bucket // vc.engine.window, 2 * vc.hubert_cfg.num_frames(bucket))
+        x = torch.randn(2, conv["w"].shape[1], p_len, device="cuda").to(torch.bfloat16)
+        out[f"{bucket // vc.engine.sample_rate}s"] = {
+            "frames": p_len, "fixed_ms": cuda_ms(lambda: conv_pre(conv, x, fixed), reps=50),
+            "own_length_ms": cuda_ms(lambda: conv_pre(conv, x), reps=50)}
+    return out
 
 
 def checkpoint_phase(root, eng, song, opts, main_out, wrappers, smi) -> dict:
@@ -1021,8 +1154,6 @@ def checkpoint_phase(root, eng, song, opts, main_out, wrappers, smi) -> dict:
     them with build_converter on the card, and convert the 60 s song: the
     output must equal, byte for byte, the synthetic converter's of the main
     path (same seeds, same default noise)."""
-    import os
-
     import torch
 
     from polgen_rvc_tpu_torch.convert.hubert_ckpt import load_hubert_checkpoint
@@ -1082,8 +1213,6 @@ def cli_phase(root, wrappers, smi) -> dict:
     main-path kernel launched (counts set to 0 just before, read after).
     Then -f mp3: libmp3lame where the machine has it, else the WAV
     fallback."""
-    import os
-
     import torch
 
     from polgen_rvc_tpu_torch.app import rvc_cli, voice_conversion
@@ -1139,12 +1268,117 @@ def cli_phase(root, wrappers, smi) -> dict:
     return result
 
 
+COVER_EFFECTS = dict(reverb_rm_size=0.5, reverb_wet=0.25, reverb_dry=0.7,
+                     compressor_ratio=4.0, compressor_threshold=-18.0,
+                     chorus_rate_hz=1.2, chorus_depth=0.25,
+                     chorus_centre_delay_ms=8.0, chorus_mix=0.3)
+
+
+def instrumental(seconds: int, sr: int = 44100) -> np.ndarray:
+    """A synthetic stereo backing track: a bass line and a chord pad."""
+    t = np.arange(seconds * sr) / sr
+    root = 55.0 * 2.0 ** ((np.floor(t) % 4) * 5 / 12.0)
+    bass = 0.3 * np.sin(2 * np.pi * root * t)
+    pad = sum(0.08 * np.sin(2 * np.pi * 220.0 * r * t) for r in (1.0, 1.26, 1.5))
+    return np.stack([bass + pad, bass + 0.8 * pad], 1).astype(np.float32)
+
+
+def cover_phase(root, wrappers, smi) -> dict:
+    """The cover maker's path through the app modules, in `root` (the
+    checkpoint phase's files, the cli phase's song.wav): install the
+    checkpoint's .pth and .index from a zip (upload_zip_file), convert the
+    song with voice_pipeline to FLAC (counts set to 0 just before, read
+    after), and mix that vocal with a synthetic 20 s 44.1 kHz stereo
+    instrumental through process_audio with the effects on, to FLAC. Both
+    outputs must be FLAC that the port's codec decodes at 48 kHz (vocal
+    mono, mix stereo and as long as the vocal), the vocal to the very int16
+    samples the pipeline wrote."""
+    import zipfile
+
+    import torch
+
+    from polgen_rvc_tpu_torch.app import model_manager, voice_conversion
+    from polgen_rvc_tpu_torch.app.audio_processing import process_audio
+    from polgen_rvc_tpu_torch.native import flac
+    from polgen_rvc_tpu_torch.utils.audio_io import _write_wav
+
+    steps, written = {}, []
+    cwd = os.getcwd()
+    os.chdir(root)
+    real_write = voice_conversion.write_audio
+
+    def keep(path, samples, sr):
+        written.append(np.array(samples))
+        return real_write(path, samples, sr)
+
+    try:
+        t0 = time.perf_counter()
+        with zipfile.ZipFile("cover.zip", "w") as z:
+            for name in ("voice.pth", "voice.index"):
+                z.write(os.path.join("models", "voice", name), f"exported/{name}")
+        steps["zip_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        msg = model_manager.upload_zip_file("cover.zip", "cover", models_dir="models")
+        steps["install_s"] = time.perf_counter() - t0
+        installed = sorted(os.listdir(os.path.join("models", "cover")))
+        voice_conversion.write_audio = keep
+        zero_launches(wrappers)
+        t0 = time.perf_counter()
+        vocal = voice_conversion.voice_pipeline("song.wav", "cover", 0, index_rate=0.5,
+                                                output_format="flac",
+                                                output_dir="output_cover")
+        torch.cuda.synchronize()
+        steps["voice_pipeline_s"] = time.perf_counter() - t0
+        launches = read_launches(wrappers)
+        voice_conversion.write_audio = real_write
+        _write_wav("instrumental.wav", instrumental(20), 44100)
+        t0 = time.perf_counter()
+        mix = process_audio(vocal, "instrumental.wav", output_format="flac",
+                            use_effects=True, output_dir="output_cover", **COVER_EFFECTS)
+        steps["process_audio_s"] = time.perf_counter() - t0
+        magic = {p: open(p, "rb").read(4) for p in (vocal, mix)}
+        t0 = time.perf_counter()
+        v, vsr = flac.decode(vocal)
+        m, msr = flac.decode(mix)
+        steps["decode_s"] = time.perf_counter() - t0
+        sizes = {p: os.path.getsize(p) for p in (vocal, mix)}
+    finally:
+        voice_conversion.write_audio = real_write
+        voice_conversion._CONVERTER_CACHE.clear()
+        os.chdir(cwd)
+    (want,) = written
+    result = {"phase": "cover", "installed": installed, "install_message": msg,
+              "vocal": {"path": vocal, "bytes": sizes[vocal], "sr": vsr,
+                        "shape": list(v.shape), "bitwise": bool(
+                            v.shape == (want.shape[0], 1)
+                            and np.array_equal((v[:, 0] * 32768).astype(np.int16), want))},
+              "mix": {"path": mix, "bytes": sizes[mix], "sr": msr, "shape": list(m.shape),
+                      "peak": float(np.abs(m).max()), "finite": bool(np.isfinite(m).all())},
+              "effects": COVER_EFFECTS, "steps": steps, "launches": launches, "card": smi}
+    emit(result)
+    if installed != ["voice.index", "voice.pth"]:
+        raise AssertionError(f"cover: installed {installed}")
+    if any(mg != b"fLaC" for mg in magic.values()):
+        raise AssertionError(f"cover: not FLAC: {magic}")
+    if vsr != 48000 or not result["vocal"]["bitwise"]:
+        raise AssertionError(f"cover: the vocal FLAC is not the samples written: {result['vocal']}")
+    if msr != 48000 or m.shape != (want.shape[0], 2) or not result["mix"]["finite"] \
+            or not result["mix"]["peak"] > 0.03:
+        raise AssertionError(f"cover: mix {result['mix']}")
+    missing = [k for k in ("resblock_group", "conv_transpose", "band_attention",
+                           "unet_chain") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"cover: kernels never launched: {missing}")
+    return result
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from polgen_rvc_tpu_torch import native
     from polgen_rvc_tpu_torch.ops import (
         band_attention, conv_transpose, cuda_build, resblock_group, unet_chain, viterbi,
     )
@@ -1165,9 +1399,13 @@ def main() -> int:
     build_s, reports = cuda_build.timed_build_all()
     ptxas = {name: [ln.split(": ", 1)[-1] for ln in log.splitlines()
                     if "registers" in ln] for name, log in reports.items()}
+    t0 = time.perf_counter()
+    native_libs = native.build_all()
+    native_s = time.perf_counter() - t0
     emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
-          "build_s": build_s, "ptxas": ptxas})
+          "build_s": build_s, "ptxas": ptxas, "native_build_s": native_s,
+          "native": {k: os.path.relpath(v) for k, v in native_libs.items()}})
 
     wrappers = {"resblock_group": resblock_group.fused_resblock_group,
                 "conv_transpose": conv_transpose.conv_transpose1d,
@@ -1214,10 +1452,12 @@ def main() -> int:
     # ---- batch covers, model files, the CLI ---------------------------------
     batch_phase(vc, song, opts, wrappers, smi)
     main_out = run["out"]
+    f0_file_phase(vc, song, opts, main_out, wrappers, smi)
     del vc, run
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         checkpoint_phase(root, eng, song, opts, main_out, wrappers, smi)
         cli_phase(root, wrappers, smi)
+        cover_phase(root, wrappers, smi)
 
     # ---- mangio-crepe path -------------------------------------------------
     t0 = time.perf_counter()

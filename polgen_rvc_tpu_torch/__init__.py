@@ -15,6 +15,10 @@ Layer map (mirrors the JAX package so each counterpart is easy to find):
     convert/    synthetic checkpoints and state-dict -> parameter dictionaries
     retrieval/  exact top-k feature retrieval
     pipeline/   chunk planner, converter engine, output path, builders
+    native/     host C++ (the FLAC codec, the effects chain), g++ at first use
+    utils/      audio file I/O (WAV, mp3, FLAC), progress, metrics
+    app/        file-to-file conversion, the CLIs, the mixdown, Edge-TTS
+                voice-over, voice-model installation
 
 Precision: float32 matmuls and convolutions run in full float32 (TF32 off,
 set by ``resolve_device``). The F0 pass and the VITS latent run in float32

@@ -94,7 +94,7 @@ def _self_attention(x, p, n_heads: int, mask=None):
     q, k, v = heads(_linear(x, p["q"])), heads(_linear(x, p["k"])), heads(_linear(x, p["v"]))
     scores = (q / math.sqrt(dk)) @ k.transpose(-1, -2)
     if mask is not None:
-        scores = scores.masked_fill(mask[:, None, None, :], -1e4)
+        scores.masked_fill_(mask[:, None, None, :], -1e4)
     out = torch.softmax(scores, dim=-1) @ v
     return _linear(out.transpose(1, 2).reshape(b, t, c), p["o"])
 

@@ -13,6 +13,14 @@ channels stay exactly zero through lrelu, the convs, the residuals and
 the mean, and conv_post's padded input channels have zero weights, so the
 output is the unpadded decoder's.
 
+conv_pre runs at a fixed frame length where the caller gives one (the
+engine gives its largest bucket's): the row's frames, zero-padded at the
+end, then the valid outputs sliced back. The padded frames are zeros, as
+is the conv's own padding, so the values are the same; on the card cuDNN
+then sees one shape at every bucket and keeps one algorithm, so a chunk
+gives the same bytes whichever bucket it rides (it picks its algorithm by
+length, and two lengths differed by a bf16 step).
+
 The sine phase is closed-form from a frame-rate cumsum, as in the JAX
 package: phase[f*upp + k] = cumsum_frames(frac(upp * rad_f))[f]
 + (k+1) * rad_f[f] (whole-cycle wrap corrections cannot change the sine).
@@ -127,29 +135,42 @@ def pack_decoder_weights(params, cfg: SynthesizerConfig):
             "resblocks": pack_resblock_weights(params["resblocks"])}
 
 
-def generator_nsf(params, cfg: SynthesizerConfig, x, f0, g=None, *, noise=None):
+def generator_nsf(params, cfg: SynthesizerConfig, x, f0, g=None, *, noise=None,
+                  frames=None):
     """conv_pre -> per stage [lrelu -> upsample -> + noise_conv(source) ->
     mean(resblocks)] -> lrelu -> conv_post -> tanh.
 
-    x: (B, inter, T); f0: (B, T) Hz; g: (B, gin, 1). Returns (B, T * upp).
+    x: (B, inter, T); f0: (B, T) Hz; g: (B, gin, 1); frames: the fixed
+    length conv_pre runs at (>= T), or None for T. Returns (B, T * upp).
     On the card, params come through pack_decoder_weights."""
     har = source_module(params["m_source"], f0, cfg.upp, cfg.sr, noise=noise,
                         dtype=x.dtype)[:, None, :]
-    return _decode(params, cfg, x, g, har)
+    return _decode(params, cfg, x, g, har, frames)
 
 
-def generator(params, cfg: SynthesizerConfig, x, g=None):
+def generator(params, cfg: SynthesizerConfig, x, g=None, *, frames=None):
     """The plain HiFi-GAN generator of no-f0 models: conv_pre -> per stage
     [lrelu -> upsample -> mean(resblocks)] -> lrelu -> conv_post -> tanh,
     with no source and no noise convs (the JAX package's ``generator``).
-    Same kernels and weight packing as generator_nsf."""
-    return _decode(params, cfg, x, g, None)
+    Same kernels, weight packing and conv_pre route as generator_nsf."""
+    return _decode(params, cfg, x, g, None, frames)
 
 
-def _decode(params, cfg: SynthesizerConfig, x, g, har):
+def conv_pre(conv, x, frames=None):
+    """The decoder's conv_pre (k 7, padding 3) on x (B, C, T), run at
+    `frames` >= T frames, zero-padded at the end, and sliced back to T."""
+    t = x.shape[-1]
+    if frames is not None:
+        if frames < t:
+            raise ValueError(f"conv_pre: {t} frames exceed the fixed length {frames}")
+        x = _pad_to(x, 2, frames)
+    return conv1d(x, conv["w"], conv["b"], padding=3)[..., :t]
+
+
+def _decode(params, cfg: SynthesizerConfig, x, g, har, frames=None):
     """The stage loop of both generators; har (B, 1, T * upp) is the NSF
     source, injected through each stage's noise conv, or None."""
-    x = conv1d(x, params["conv_pre"]["w"], params["conv_pre"]["b"], padding=3)
+    x = conv_pre(params["conv_pre"], x, frames)
     if g is not None:
         x = x + conv1d(g, params["cond"]["w"], params["cond"]["b"])
     n_k = len(cfg.resblock_kernel_sizes)

@@ -168,7 +168,7 @@ def flow_reverse(params, cfg: SynthesizerConfig, z_p, x_mask, g):
 def synthesizer_infer(params: dict, cfg: SynthesizerConfig, phone, x_mask,
                       pitch=None, nsff0=None, sid=None, *, eps=None,
                       nsf_noise=None, noise_scale: float = 0.66666,
-                      compute_dtype=torch.float32):
+                      compute_dtype=torch.float32, dec_frames=None):
     """Full generator inference.
 
     phone: (B, T, input_dim) content features (already 2x-upsampled);
@@ -176,8 +176,9 @@ def synthesizer_infer(params: dict, cfg: SynthesizerConfig, phone, x_mask,
     models; None for no-f0 models, whose decoder is the plain generator);
     sid: (B,) speaker ids (default 0); eps: (B, inter, >= T) latent noise
     and nsf_noise: (B, >= T*upp) source noise, each sliced to length (None =
-    noise-free; no-f0 models have no source and ignore nsf_noise). Returns
-    (B, T * upp) in compute_dtype.
+    noise-free; no-f0 models have no source and ignore nsf_noise);
+    dec_frames: the fixed frame length of the decoder's conv_pre (>= T;
+    models/nsf.py), or None. Returns (B, T * upp) in compute_dtype.
     """
     from .nsf import generator, generator_nsf  # nsf imports SynthesizerConfig from here
 
@@ -199,5 +200,6 @@ def synthesizer_infer(params: dict, cfg: SynthesizerConfig, phone, x_mask,
     z = flow_reverse(params["flow"], cfg, z_p.to(compute_dtype), x_mask, g)
     z = z * x_mask
     if not cfg.use_f0:
-        return generator(params["dec"], cfg, z, g)
-    return generator_nsf(params["dec"], cfg, z, nsff0, g, noise=nsf_noise)
+        return generator(params["dec"], cfg, z, g, frames=dec_frames)
+    return generator_nsf(params["dec"], cfg, z, nsff0, g, noise=nsf_noise,
+                         frames=dec_frames)

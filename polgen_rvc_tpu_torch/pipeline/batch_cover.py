@@ -9,19 +9,22 @@ then each song's rows, in chunk order, take the whole-song RMS gain, int16
 pack and host finalize that ``convert`` applies. Noise is drawn per (seed,
 song-local chunk id), so a row renders the same whatever rides beside it:
 a song whose chunks ride the buckets they ride in ``convert`` comes out
-byte for byte as ``convert`` gives it. A chunk on a larger bucket differs
-by rounding only: the masked models are pad-invariant, but a library
-convolution may pick its algorithm by length (on the card the decoder's
-conv_pre does, and the output then moves by a few bf16 steps).
+byte for byte as ``convert`` gives it. A chunk on a larger bucket gives
+the same bytes on the card too (the masked models are pad-invariant, and
+the decoder's conv_pre, whose cuDNN algorithm changes with the length,
+runs at one fixed length); on the CPU the plain twins' convolutions pick
+their algorithms by length, and such a chunk differs by rounding only.
 
 The JAX package groups chunks by bucket class instead, which bounds the
 shapes XLA compiles. Eager PyTorch compiles nothing per shape, so the
 port fills the rows that grouping would leave empty: a batch's work
 scales with its bucket times ``chunk_batch`` rows, real or not.
 
-Every F0 method packs: the port's F0 pass is one device call per song for
-rmvpe+, mangio-crepe and fcpe alike (the JAX package converts crepe and
-fcpe songs serially because its F0 for them runs on the host).
+Every F0 method packs, with or without an F0 file: the port's F0 pass is
+one device call per song for rmvpe+, mangio-crepe and fcpe alike, and an
+F0 file overrides a song's F0 before any row is assembled (the JAX
+package converts crepe, fcpe and F0-file songs serially because its F0
+for them runs on the host).
 """
 
 from __future__ import annotations
@@ -67,8 +70,6 @@ class BatchCoverMixin:
         n_songs = len(audios)
         if n_songs == 0:
             return []
-        if opts.f0_file:
-            raise NotImplementedError("f0 files are not ported yet")
         progress(0.05, f"planning {n_songs} songs and their F0")
         songs = [self._prepare_song(audio, opts) for audio in audios]
         batches = pack_work([song.plan for song in songs], self.engine)

@@ -17,7 +17,9 @@ int16 pack, the optional output resample and the final normalize.
 Semantics follow the JAX engine: the same buckets (``_batch_geometry``),
 row assembly (``_assemble_rows``), masks and trim, and noise drawn at the
 fixed ``_noise_frames()`` length per song-local chunk id, so a chunk
-renders the same in any batch slot and bucket. Noise comes from a
+renders the same in any batch slot and bucket. The decoder's conv_pre runs
+at that same fixed length (models/nsf.py), so on the card too a chunk's
+bytes do not depend on its bucket. Noise comes from a
 provider: by default a ``torch.Generator`` seeded from (seed, chunk id);
 the tests inject the JAX package's own draws instead.
 """
@@ -45,6 +47,7 @@ from .batch_cover import BatchCoverMixin, bucket_class
 from .chunking import ChunkPlan, plan_chunks
 from .config import ConversionOptions, EngineConfig
 from .crepe_method import crepe_f0
+from .f0_file import apply_f0_file, coarse_f0_np
 from .fcpe_method import fcpe_f0, fcpe_f0_device
 from .output import change_rms, host_finalize, pack_int16, rows_to_audio
 
@@ -226,6 +229,19 @@ class VoiceConverter(BatchCoverMixin):
                 (f0 * (2.0 ** (opts.pitch / 12.0))).astype(np.float32)).to(buf.device)
         return coarse_f0(pitchf, opts.f0_min, opts.f0_max), pitchf
 
+    def _apply_f0_file(self, pitchf, opts: ConversionOptions, p_len: int):
+        """An F0 file over the shifted F0 of the padded signal's p_len
+        frames (pipeline/f0_file.py): pitchf comes to the host, the file
+        overrides its frames, the coarse bins of every frame are computed
+        in numpy as the JAX package computes them, and both go back to the
+        device. Frames from p_len on, which no chunk reads, keep the F0
+        pass's values."""
+        f0 = pitchf.cpu().numpy().copy()
+        apply_f0_file(f0[:p_len], opts.f0_file, self.engine)
+        pitch = coarse_f0_np(f0.copy(), opts.f0_min, opts.f0_max)
+        return (torch.from_numpy(pitch.astype(np.int64)).to(self.device),
+                torch.from_numpy(f0).to(self.device))
+
     # ------------------------------------------------------------------
     # one chunk batch
     # ------------------------------------------------------------------
@@ -299,7 +315,7 @@ class VoiceConverter(BatchCoverMixin):
         audio = synthesizer_infer(
             self.synth_params, self.synth_cfg, feats,
             frame_mask[:, None, :], pitch, pitchf, sid, eps=eps, nsf_noise=nsf,
-            noise_scale=eng.noise_scale, compute_dtype=cdt,
+            noise_scale=eng.noise_scale, compute_dtype=cdt, dec_frames=nf,
         ).float()
 
         t_pad_tgt = self.tgt_sr * eng.x_pad
@@ -315,7 +331,8 @@ class VoiceConverter(BatchCoverMixin):
 
     def _prepare_song(self, audio16k: np.ndarray, opts: ConversionOptions) -> SongPrep:
         """High-pass, pad and quantize on the host, plan the chunks, upload
-        and dequantize the padded signal once, and run the F0 pass."""
+        and dequantize the padded signal once, and run the F0 pass, then
+        the F0 file's override where opts name one."""
         eng = self.engine
         audio, qbuf, inv_scale, padded_len = highpass_pad_quant(
             np.asarray(audio16k, np.float64), eng.t_pad, eng.window
@@ -325,6 +342,9 @@ class VoiceConverter(BatchCoverMixin):
         pitch = pitchf = None
         if self.synth_cfg.use_f0:
             pitch, pitchf = self.compute_f0(buf, opts, padded_len)
+            if opts.f0_file:
+                pitch, pitchf = self._apply_f0_file(pitchf, opts,
+                                                    padded_len // eng.window)
         return SongPrep(audio, plan, buf, pitch, pitchf)
 
     def _convert_rows(self, entries, bucket: int, opts: ConversionOptions):
@@ -367,8 +387,6 @@ class VoiceConverter(BatchCoverMixin):
                 opts: ConversionOptions = ConversionOptions(),
                 progress: ProgressReporter = NULL_PROGRESS):
         """Float mono 16 kHz -> (int16 audio, output sample rate)."""
-        if opts.f0_file:
-            raise NotImplementedError("f0 files are not ported yet")
         progress(0.05, "high-pass filtering and F0")
         song = self._prepare_song(audio16k, opts)
         segments = []

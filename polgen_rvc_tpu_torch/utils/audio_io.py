@@ -2,10 +2,11 @@
 package's utils/audio_io.py.
 
 WAV (PCM 8/16/24/32 and float32/64) is read and written here; MP3 goes
-through ctypes bindings to libmp3lame/libmpg123 (utils/mp3_codec.py) with
-an ffmpeg-subprocess fallback. FLAC takes the ffmpeg route (the JAX
-package's native FLAC codec is not carried over yet). Without a codec,
-CodecUnavailable is raised.
+through ctypes bindings to libmp3lame/libmpg123 (utils/mp3_codec.py), FLAC
+through the port's native codec (native/flac.py, built with g++ at first
+use), each with an ffmpeg-subprocess fallback where its codec is missing.
+Without a codec, CodecUnavailable is raised. A native codec that is there
+and fails (a build error, a corrupt file) raises.
 """
 
 from __future__ import annotations
@@ -124,6 +125,11 @@ def read_audio(path: str):
     ext = os.path.splitext(path)[1].lower()
     if ext == ".wav":
         return _read_wav(path)
+    if ext == ".flac":
+        from ..native import available, flac
+
+        if available("polgen_flac"):
+            return flac.decode(path)
     if ext == ".mp3":
         from . import mp3_codec
 
@@ -150,13 +156,19 @@ def read_audio(path: str):
 
 
 def write_audio(path: str, samples, sr: int):
-    """Encode by extension: WAV here, mp3 through libmp3lame, anything else
-    (and mp3 without libmp3lame) through ffmpeg."""
+    """Encode by extension: WAV here, mp3 through libmp3lame, FLAC through
+    the native codec, anything else (and mp3 or FLAC without its codec)
+    through ffmpeg."""
     ext = os.path.splitext(path)[1].lower()
     samples = np.asarray(samples)
     if ext == ".wav":
         _write_wav(path, samples, sr)
         return path
+    if ext == ".flac":
+        from ..native import available, flac
+
+        if available("polgen_flac"):
+            return flac.encode(path, samples, sr)
     if ext == ".mp3":
         from . import mp3_codec
 

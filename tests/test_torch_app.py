@@ -85,10 +85,14 @@ def test_wav_writes_int16_as_is_and_mono(tmp_path):
 
 def test_mp3_gated_without_any_codec(tmp_path, monkeypatch):
     """With neither libmp3lame/libmpg123 nor ffmpeg, mp3 raises
-    CodecUnavailable both ways."""
+    CodecUnavailable both ways; so does FLAC without its native codec (no
+    library built and no g++) and ffmpeg."""
+    from polgen_rvc_tpu_torch import native
+
     def no_lib():
         raise mp3_codec.Mp3Unavailable("forced for test")
 
+    monkeypatch.setattr(native, "available", lambda name: False)
     monkeypatch.setattr(mp3_codec, "_lame", no_lib)
     monkeypatch.setattr(mp3_codec, "_mpg123", no_lib)
     monkeypatch.setattr(audio_io.shutil, "which", lambda name: None)

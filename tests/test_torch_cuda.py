@@ -503,3 +503,169 @@ def test_rmvpe_conv_transpose2d_repeats_on_the_card(dev, no_tf32, c_in, c_out, t
                              output_padding=1)
     # fp32 with TF32 off (as the entry points set it): summation order only
     assert float((outs[0].cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+# ---- the decoder's bytes at every bucket ------------------------------------
+
+# bench.py's accelerator tiers (chip_smoke.py's engine): 4 s buckets
+BENCH_TIERS = dict(x_pad=1, x_query=6, x_center=30, x_max=32, chunk_batch=2,
+                   bucket_step_s=4, compute_dtype="bfloat16")
+
+
+def _bucket_frames():
+    """(every p_len the bench tiers' buckets give, the fixed conv_pre
+    length): p_len = min(bucket // 160, 2 * HuBERT frames)."""
+    from polgen_rvc_tpu_torch.models.hubert import HubertConfig
+    from polgen_rvc_tpu_torch.pipeline.config import EngineConfig
+
+    eng, hub = EngineConfig(**BENCH_TIERS), HubertConfig()
+    step = eng.bucket_step_s * eng.sample_rate
+    lens = [min(b // eng.window, 2 * hub.num_frames(b))
+            for b in range(step, eng.max_bucket_len + 1, step)]
+    return lens, lens[-1]
+
+
+def _rows(rng, c, valid, t, dev):
+    """Two rows of t frames: row 0 the chunk under test (`valid` frames of
+    data, then zeros, as the flow's masked output), row 1 another song's
+    chunk filling every frame (zeroed where the chunk rides alone, as a
+    serial convert's empty row)."""
+    x = torch.zeros(2, c, t, dtype=torch.bfloat16, device=dev)
+    x[0, :, :valid] = _t(rng.standard_normal((c, valid)) * 0.5, dev).to(torch.bfloat16)
+    x[1] = _t(rng.standard_normal((c, t)) * 0.5, dev).to(torch.bfloat16)
+    return x
+
+
+def test_conv_pre_bytes_do_not_depend_on_the_bucket(dev):
+    """The decoder's conv_pre (192 -> 512, k 7, bf16) on the same 1,198
+    frames (the 9 s song's chunk) inside rows of 1,198 and 1,998 frames and
+    of every p_len the bench tiers make, through the fixed-length route:
+    equal bytes on the chunk's frames. The plain cuDNN conv at the row's
+    own length is printed beside it (it differed between 1,198 and 1,998)."""
+    from polgen_rvc_tpu_torch.models.nsf import conv_pre
+
+    lens, fixed = _bucket_frames()
+    rng = np.random.default_rng(11)
+    conv = {"w": _t(rng.standard_normal((512, 192, 7)) / np.sqrt(192 * 7), dev),
+            "b": _t(rng.standard_normal(512) * 0.02, dev)}
+    valid = 1198
+    x_full = _rows(rng, 192, valid, fixed, dev)
+    fixed_out, plain_out = {}, {}
+    for t in sorted({1198, 1998, *[n for n in lens if n >= valid]}):
+        x = x_full[:, :, :t].clone()
+        if t == valid:
+            x[1] = 0
+        fixed_out[t] = conv_pre(conv, x, fixed)[0, :, :valid]
+        plain_out[t] = conv_pre(conv, x)[0, :, :valid]
+    ref = fixed_out[valid]
+    print({t: bool(torch.equal(y, plain_out[valid])) for t, y in plain_out.items()})
+    for t, y in fixed_out.items():
+        assert torch.equal(y, ref), f"conv_pre at {t} frames differs from {valid}"
+
+
+@pytest.mark.parametrize("valid,lengths", [(1198, (1198, 1998, 4000)), (2798, (2798, 4000))])
+def test_decoder_bytes_do_not_depend_on_the_bucket(dev, valid, lengths):
+    """The full-width 48 kHz NSF decoder (packed weights, bf16, conv_pre at
+    the bench tiers' fixed length) on the same chunk in rows of each
+    length: equal bytes over the samples the engine keeps (the chunk's,
+    less x_pad = 1 s at each end, past which the source's noise in the
+    padded frames reaches). Covers the noise convs, conv_post and the
+    kernels between them as well as conv_pre."""
+    from polgen_rvc_tpu_torch.convert.params import params_to_torch
+    from polgen_rvc_tpu_torch.convert.rvc_ckpt import build_config, convert_synthesizer_state
+    from polgen_rvc_tpu_torch.convert.synthetic import make_rvc_checkpoint
+    from polgen_rvc_tpu_torch.models.nsf import generator_nsf, pack_decoder_weights
+
+    cpt = make_rvc_checkpoint(sr=48000, tiny=False, seed=0)
+    cfg = build_config(cpt["config"], use_f0=True, version="v2")
+    dec_np = convert_synthesizer_state(cpt["weight"], cfg)["dec"]
+    dec = pack_decoder_weights(params_to_torch(dec_np, dev), cfg)
+    _, fixed = _bucket_frames()
+    rng = np.random.default_rng(12)
+    z = _rows(rng, cfg.inter_channels, valid, max(lengths), dev)
+    f0 = torch.zeros(2, max(lengths), device=dev)
+    f0[0, :valid] = _t(180 + 60 * rng.random(valid), dev)
+    f0[1] = _t(220 + 40 * rng.random(max(lengths)), dev)
+    g = _t(rng.standard_normal((2, cfg.gin_channels, 1)), dev).to(torch.bfloat16)
+    noise = _t(rng.standard_normal((2, fixed * cfg.upp)), dev)
+    outs = {}
+    with torch.inference_mode():
+        for t in lengths:
+            zt, ft = z[:, :, :t].clone(), f0[:, :t].clone()
+            if t == valid:
+                zt[1], ft[1] = 0, 0
+            y = generator_nsf(dec, cfg, zt, ft, g, noise=noise, frames=fixed)
+            outs[t] = y[0, cfg.sr:valid * cfg.upp - cfg.sr]
+    for t, y in outs.items():
+        d = (y.float() - outs[valid].float()).abs()
+        assert torch.equal(y, outs[valid]), (
+            f"decoder at {t} frames: {int((d > 0).sum())} samples differ, max {float(d.max())}")
+
+
+@pytest.mark.parametrize("conv", ["noise_convs.0", "noise_convs.1", "noise_convs.2",
+                                  "noise_convs.3", "conv_post"])
+def test_decoder_library_convs_bytes_do_not_depend_on_the_length(dev, conv):
+    """The decoder's other cuDNN convs, as _decode calls them (bf16, the
+    full-width 48 kHz shapes), on the same 1,198-frame chunk inside rows
+    of 1,198 and 1,998 frames' samples: equal bytes over the chunk's
+    outputs less a 1 s margin at its end. They run at the row's own length
+    (only conv_pre needed the fixed length)."""
+    import math
+
+    from polgen_rvc_tpu_torch.ops.conv import conv1d
+
+    rates, upp, channels = (12, 10, 2, 2), 480, (256, 128, 64, 32)
+    rng = np.random.default_rng(13)
+    if conv == "conv_post":
+        c_in, c_out, k, stride, pad = 32, 1, 7, 1, 3
+    else:
+        i = int(conv.split(".")[1])
+        stride = math.prod(rates[i + 1:])
+        c_in, c_out = 1, channels[i]
+        k, pad = (stride * 2, stride // 2) if stride > 1 else (1, 0)
+    w = _t(rng.standard_normal((c_out, c_in, k)) / np.sqrt(c_in * k), dev)
+    b = _t(rng.standard_normal(c_out) * 0.02, dev)
+    valid, margin = 1198 * upp, 48000
+    outs = {}
+    x_full = _rows(rng, c_in, valid, 1998 * upp, dev)
+    for t in (1198 * upp, 1998 * upp):
+        x = x_full[:, :, :t].clone()
+        if t == valid:
+            x[1] = 0
+        y = conv1d(x, w, b, stride=stride, padding=pad)
+        outs[t] = y[0, :, :(valid - margin) // stride]
+    assert torch.equal(outs[1998 * upp], outs[valid])
+
+
+def test_voice_pipeline_writes_flac_on_the_card(dev, tmp_path, monkeypatch):
+    """voice_pipeline(output_format="flac") on the card, from model files
+    in the app's layout: a real FLAC file from the port's native codec
+    (tried before ffmpeg) whose samples decode to the int16 the convert
+    gave, bit for bit."""
+    from polgen_rvc_tpu_torch.app import voice_conversion
+    from polgen_rvc_tpu_torch.native import flac
+    from polgen_rvc_tpu_torch.pipeline.factory import write_synthetic_files
+    from polgen_rvc_tpu_torch.utils.audio_io import write_audio
+
+    write_synthetic_files(str(tmp_path), "voice", tiny=True, index_vectors=256)
+    monkeypatch.chdir(tmp_path)
+    t = np.arange(2 * 44100) / 44100
+    x = (0.4 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+    write_audio("in.wav", np.stack([x, 0.8 * x], 1), 44100)
+    written = []
+
+    def keep(path, samples, sr):
+        written.append(np.array(samples))
+        return write_audio(path, samples, sr)
+
+    monkeypatch.setattr(voice_conversion, "write_audio", keep)
+    try:
+        path = voice_conversion.voice_pipeline("in.wav", "voice", 0, index_rate=0.5,
+                                               output_format="flac", device="cuda")
+    finally:
+        voice_conversion._CONVERTER_CACHE.clear()
+    assert path.endswith("Voice_Converted.flac") and open(path, "rb").read(4) == b"fLaC"
+    y, sr = flac.decode(path)
+    (want,) = written
+    assert sr == 48000 and want.dtype == np.int16 and y.shape == (want.shape[0], 1)
+    assert np.array_equal((y[:, 0] * 32768).astype(np.int16), want)

@@ -47,6 +47,7 @@ from polgen_rvc_tpu_torch.ops.conv_transpose import phase_taps
 from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions, EngineConfig
 from polgen_rvc_tpu_torch.pipeline.engine import VoiceConverter
 from polgen_rvc_tpu_torch.pipeline.factory import synthetic_params
+from test_torch_pipeline import one_intra_op_thread  # noqa: F401
 
 SMOKE_ENGINE = dict(x_pad=1, x_query=2, x_center=3, x_max=4, chunk_batch=2,
                     bucket_step_s=2)
@@ -186,7 +187,7 @@ def test_convert_f0_model_matches_jax_at(sr):
     vc, _ = _port_converter(sr=sr)
     jvc = jax_build_converter(tiny=True, sr=sr, index_vectors=256,
                               engine=JaxEngineConfig(**SMOKE_ENGINE))
-    dist = _convert_both(vc, jvc, 3.0, dict(BENCH_OPTS))
+    dist = _convert_both(vc, jvc, 2.0, dict(BENCH_OPTS))
     assert dist < 0.5, f"mel distortion {dist:.3f} dB at {sr} Hz"
 
 
@@ -200,7 +201,7 @@ def test_convert_v1_matches_jax(monkeypatch):
     assert vc.version == jvc.version == "v1"
     assert model[0].input_dim == 256 and len(model[0].upsample_rates) == 5
     _assert_same_tree(model[1], jax.tree.map(np.asarray, jvc.synth_params))
-    dist = _convert_both(vc, jvc, 3.0, dict(BENCH_OPTS))
+    dist = _convert_both(vc, jvc, 2.0, dict(BENCH_OPTS))
     assert dist < 0.5, f"mel distortion {dist:.3f} dB"
 
 

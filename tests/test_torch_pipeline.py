@@ -55,6 +55,18 @@ def jax_noise(seed, chunk_id, lat_shape, nsf_len, device):
     return torch.from_numpy(eps).to(device), torch.from_numpy(nsf).to(device)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """One torch intra-op thread while a module's tests run (this one's, and
+    every port test file's that imports it): the tier-1 run puts six test
+    processes on the machine's cores, and eight threads each make the tiny
+    models' CPU convs spin on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def port_vc():
     """bench.py's CPU-smoke converter, built once for this file (its
@@ -82,7 +94,7 @@ def test_convert_matches_jax_end_to_end(port_vc):
 
 
 def test_default_noise_is_deterministic_and_seeded(port_vc):
-    song = _bench_song(3.0)
+    song = _bench_song(2.0)
     vc = port_vc
     assert vc.noise_provider is torch_noise
     a, _ = vc.convert(song, ConversionOptions(seed=1))
