@@ -69,6 +69,29 @@ exit code != 0):
                vocal mono, the mix stereo and as long as the vocal), the
                vocal to the int16 samples written, bit for bit. Each
                step's host seconds.
+  serve:       the port's UI server (app/ui/server.py's Handler in a
+               ThreadingHTTPServer on 127.0.0.1, from a thread), in that
+               directory: POST /api/upload (multipart, the cli phase's
+               WAV), /api/convert of the zip-installed model (index_rate
+               0.5, output_format "wav"), /api/job/<id> polled every 20 ms
+               to done, GET /audio/Voice_Converted.wav (counts set to 0
+               before, the main-path kernels launched): the bytes a direct
+               voice_pipeline call on the same cached converter writes. A
+               second request, then two posted back to back: both done, one
+               after the other, equal bytes. /api/process with the cover
+               phase's vocal, instrumental and effects, to FLAC: the cover
+               phase's mix bytes. Request-to-done walls (the first with the
+               model load) against the direct call's.
+  prewarm:     two fresh child processes (python3 chip_smoke.py
+               --prewarm-child cold|warm DIR: cold CUDA context, handles,
+               ctypes libraries and allocator), each loading the checkpoint
+               phase's files with build_converter (bf16, bench's tiers).
+               cold: its first and second convert of the 60 s song, timed;
+               warm: prewarm timed, then its first and second convert.
+               After prewarm, no kernel is built or loaded (cuda_build's
+               counts); all four outputs equal the main path's byte for
+               byte. The cold and prewarmed first converts' walls beside
+               the steady (second) ones.
   crepe:       the same, with full-width CREPE weights
                (with_crepe=True) and f0_method="mangio-crepe" at hop 128:
                viterbi launches exactly once a convert, the resblock group
@@ -132,6 +155,12 @@ exit code != 0):
                error < 1e-4, > 95% of frames below 1e-2, > 95% of coarse
                bins equal). The no-f0 renditions, and the v1 32 kHz
                renditions on one F0, stay below 0.5 dB.
+  discriminators: multi_period_discriminator v2 (models/discriminators.py,
+               plain convs, no kernel) at full width on 2 x 1 x 48,000
+               samples of real and generated audio, float32 with TF32 off,
+               on the card and on the CPU: 9 heads each, every logit and
+               feature map within 1e-4 of the CPU map's largest |value|;
+               the card's wall time of one call.
 Then a "total" line with the script's seconds, the {"kernels": [...]}
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -1372,6 +1401,280 @@ def cover_phase(root, wrappers, smi) -> dict:
     return result
 
 
+def prewarm_child(mode: str, root: str) -> int:
+    """python3 chip_smoke.py --prewarm-child cold|warm ROOT: a fresh process
+    (cold CUDA context, library handles, ctypes libraries and allocator)
+    loads ROOT's model files (the checkpoint phase's) with build_converter
+    on the card, bf16 at bench's tiers. cold: times its first and second
+    convert of the 60 s song; warm: times prewarm, then its first and
+    second convert. Prints one JSON line (the walls, prewarm's return
+    value, the kernel builds and loads so far after each step) and writes
+    each convert's samples to ROOT/prewarm_<mode>_<i>.npy."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from polgen_rvc_tpu_torch.ops import cuda_build
+    from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions, EngineConfig
+    from polgen_rvc_tpu_torch.pipeline.factory import build_converter
+
+    def join(*parts):
+        return os.path.join(root, *parts)
+
+    t0 = time.perf_counter()
+    vc = build_converter(join("models", "voice", "voice.pth"),
+                         join("assets", "embedders", "hubert_base.pt"),
+                         join("assets", "predictors", "rmvpe.pt"),
+                         join("models", "voice", "voice.index"),
+                         engine=EngineConfig(**BENCH_TIERS, compute_dtype="bfloat16"),
+                         device="cuda")
+    torch.cuda.synchronize()
+    out = {"phase": "prewarm_child", "mode": mode,
+           "build_converter_s": time.perf_counter() - t0,
+           "counts_after_load": cuda_build.counts()}
+    song = bench_song(SONG_SECONDS)
+    opts = ConversionOptions(**BENCH_OPTS)
+    if mode == "warm":
+        t0 = time.perf_counter()
+        out["prewarm_returned"] = vc.prewarm(song, opts)
+        torch.cuda.synchronize()
+        out["prewarm_s"] = time.perf_counter() - t0
+        out["counts_after_prewarm"] = cuda_build.counts()
+    walls = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        y, _ = vc.convert(song, opts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        np.save(join(f"prewarm_{mode}_{i}.npy"), y)
+        out[f"counts_after_convert_{i}"] = cuda_build.counts()
+    out.update(first_convert_s=walls[0], second_convert_s=walls[1],
+               device=torch.cuda.get_device_name(0))
+    emit(out)
+    return 0
+
+
+def prewarm_phase(root, main_out, smi) -> dict:
+    """Two fresh child processes on the checkpoint phase's files (see
+    prewarm_child): after prewarm, the warm child's converts build and load
+    no kernel; all four converts equal the main path's output byte for
+    byte. Prints the cold first convert's wall, the prewarmed first
+    convert's and the steady (second) converts' side by side."""
+    children = {}
+    for mode in ("cold", "warm"):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--prewarm-child",
+                            mode, root], capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"prewarm: the {mode} child failed:\n{r.stdout}\n{r.stderr}")
+        children[mode] = json.loads(r.stdout.strip().splitlines()[-1])
+    equal = {f"{mode}_{i}": bool(np.array_equal(np.load(os.path.join(
+        root, f"prewarm_{mode}_{i}.npy")), main_out)) for mode in children for i in range(2)}
+    warm = children["warm"]
+    after = warm["counts_after_prewarm"]
+    extra = {k: warm["counts_after_convert_1"][k] - after[k] for k in after}
+    result = {"phase": "prewarm", "cold": children["cold"], "warm": warm,
+              "first_convert_cold_s": children["cold"]["first_convert_s"],
+              "first_convert_prewarmed_s": warm["first_convert_s"],
+              "steady_convert_s": [children["cold"]["second_convert_s"],
+                                   warm["second_convert_s"]],
+              "builds_and_loads_after_prewarm": extra, "equal_to_main": equal,
+              "card": smi}
+    emit(result)
+    if any(extra.values()):
+        raise AssertionError(f"prewarm: converts after prewarm built or loaded kernels: "
+                             f"{extra}")
+    if not all(equal.values()):
+        raise AssertionError(f"prewarm: outputs differ from the main path's: {equal}")
+    return result
+
+
+def http_json(url: str, body=None, content_type: str = "application/json"):
+    import urllib.request
+
+    data = None if body is None else (
+        body if isinstance(body, bytes) else json.dumps(body).encode())
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": content_type},
+                                 method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.read()
+
+
+def wait_job(base: str, job: str, timeout: float = 600.0) -> dict:
+    """Poll /api/job/<id> every 20 ms, as the page does, until it ends."""
+    t_end = time.perf_counter() + timeout
+    while time.perf_counter() < t_end:
+        st = json.loads(http_json(f"{base}/api/job/{job}"))
+        if st["status"] in ("done", "error"):
+            return st
+        time.sleep(0.02)
+    raise AssertionError(f"serve: job {job} did not end in {timeout} s")
+
+
+def serve_phase(root, cover, wrappers, smi) -> dict:
+    """The port's UI server (app/ui/server.py) on 127.0.0.1 from a thread,
+    in the cover phase's working directory: POST /api/upload (multipart, the
+    cli phase's WAV), /api/convert of the zip-installed model (index_rate
+    0.5, output_format "wav"), poll /api/job/<id> to done and GET
+    /audio/Voice_Converted.wav; counts set to 0 just before, read after.
+    The fetched bytes equal what a direct voice_pipeline call on the same
+    cached converter writes. A second request, then two posted back to
+    back: both done, one after the other, with equal bytes. /api/process
+    with the cover phase's inputs and effects, to FLAC, gives the cover
+    phase's mix bytes. Walls: request to done, against the direct call."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from polgen_rvc_tpu_torch.app import voice_conversion
+    from polgen_rvc_tpu_torch.app.ui import server
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    real_pipeline = server.voice_pipeline
+    runs = []
+
+    def recorded(*args, **kwargs):
+        t0 = time.perf_counter()
+        path = real_pipeline(*args, **kwargs)
+        with open(path, "rb") as f:
+            runs.append({"start": t0, "end": time.perf_counter(), "bytes": f.read()})
+        return path
+
+    server.voice_pipeline = recorded
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.Handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    walls = {}
+    try:
+        with open("song.wav", "rb") as f:
+            wav = f.read()
+        body = (b'--SMOKE\r\nContent-Disposition: form-data; name="file"; '
+                b'filename="song.wav"\r\n\r\n' + wav + b"\r\n--SMOKE--\r\n")
+        uploaded = json.loads(http_json(f"{base}/api/upload", body,
+                                        "multipart/form-data; boundary=SMOKE"))["paths"]["file"]
+        req = {"input_path": uploaded, "model": "cover", "pitch": 0, "index_rate": 0.5,
+               "output_format": "wav"}
+
+        def request():
+            t0 = time.perf_counter()
+            job = json.loads(http_json(f"{base}/api/convert", req))["job"]
+            st = wait_job(base, job)
+            if st["status"] != "done":
+                raise AssertionError(f"serve: /api/convert ended {st}")
+            return time.perf_counter() - t0
+
+        zero_launches(wrappers)
+        walls["first_request_s"] = request()
+        launches = read_launches(wrappers)
+        served = http_json(f"{base}/audio/Voice_Converted.wav")
+        walls["second_request_s"] = request()
+        jobs = [json.loads(http_json(f"{base}/api/convert", req))["job"] for _ in range(2)]
+        states = [wait_job(base, j)["status"] for j in jobs]
+        t0 = time.perf_counter()
+        path = voice_conversion.voice_pipeline(uploaded, "cover", 0, index_rate=0.5,
+                                               output_format="wav")
+        torch.cuda.synchronize()
+        walls["direct_voice_pipeline_s"] = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            direct = f.read()
+        preq = {"vocal_path": cover["vocal"]["path"], "instrumental_path": "instrumental.wav",
+                "output_format": "flac", "use_effects": True, **COVER_EFFECTS}
+        t0 = time.perf_counter()
+        st = wait_job(base, json.loads(http_json(f"{base}/api/process", preq))["job"])
+        walls["process_request_s"] = time.perf_counter() - t0
+        mix = http_json(f"{base}/audio/{os.path.basename(st['result'])}")
+        with open(cover["mix"]["path"], "rb") as f:
+            cover_mix = f.read()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        server.voice_pipeline = real_pipeline
+        voice_conversion._CONVERTER_CACHE.clear()
+        os.chdir(cwd)
+    back_to_back = runs[2:4]
+    result = {"phase": "serve", "walls": walls, "launches": launches,
+              "served_bytes": len(served), "served_equals_direct": served == direct,
+              "requests_equal": all(r["bytes"] == direct for r in runs),
+              "back_to_back": {"states": states, "one_after_the_other":
+                               back_to_back[0]["end"] <= back_to_back[1]["start"],
+                               "equal": back_to_back[0]["bytes"] == back_to_back[1]["bytes"]},
+              "mix_bytes": len(mix), "mix_equals_cover": mix == cover_mix, "card": smi}
+    emit(result)
+    if not (result["served_equals_direct"] and result["requests_equal"]):
+        raise AssertionError("serve: the served WAV differs from voice_pipeline's")
+    if states != ["done", "done"] or not result["back_to_back"]["one_after_the_other"] \
+            or not result["back_to_back"]["equal"]:
+        raise AssertionError(f"serve: back-to-back jobs {result['back_to_back']}")
+    if not result["mix_equals_cover"]:
+        raise AssertionError("serve: /api/process differs from the cover phase's mix")
+    missing = [k for k in ("resblock_group", "conv_transpose", "band_attention",
+                           "unet_chain") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"serve: kernels never launched: {missing}")
+    return result
+
+
+DISC_TOL = 1e-4  # of each map's largest |value|: float32 summation order
+
+
+def discriminator_phase(smi) -> dict:
+    """multi_period_discriminator v2 at full width on 2 x 1 x 48,000 samples
+    of real and generated audio (random, from a seed), float32 with TF32
+    off, on the card and on the CPU: 9 heads each, every logit and feature
+    map within DISC_TOL of the CPU's largest |value| in that map; the card's
+    wall time of one call (after one warm-up)."""
+    import torch
+
+    from polgen_rvc_tpu_torch import resolve_device
+    from polgen_rvc_tpu_torch.convert.params import params_to_torch
+    from polgen_rvc_tpu_torch.models.discriminators import (
+        init_discriminator_params, multi_period_discriminator,
+    )
+
+    resolve_device("cuda")  # TF32 off
+    params = init_discriminator_params(version="v2", seed=0)
+    rng = np.random.default_rng(9)
+    y, y_hat = ((rng.standard_normal((2, 1, 48000)) * 0.1).astype(np.float32)
+                for _ in range(2))
+    outs, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = params_to_torch(params, dev)
+        a, b = torch.from_numpy(y).to(dev), torch.from_numpy(y_hat).to(dev)
+        with torch.inference_mode():
+            if dev == "cuda":
+                multi_period_discriminator(p, a, b, version="v2")
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[dev] = multi_period_discriminator(p, a, b, version="v2")
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            walls[dev] = time.perf_counter() - t0
+    heads = [len(x) for x in outs["cuda"]]
+    worst = 0.0
+    n_maps = 0
+    for card_lists, cpu_lists in zip(outs["cuda"], outs["cpu"]):
+        for card_head, cpu_head in zip(card_lists, cpu_lists):
+            for c, r in zip(tree_tensors(card_head), tree_tensors(cpu_head)):
+                if c.shape != r.shape:
+                    raise AssertionError(f"discriminators: {tuple(c.shape)} vs {tuple(r.shape)}")
+                worst = max(worst, float((c.cpu() - r).abs().max() / r.abs().max()))
+                n_maps += 1
+    result = {"phase": "discriminators", "version": "v2", "input": [2, 1, 48000],
+              "heads": heads, "tensors_compared": n_maps, "worst_rel_err": worst,
+              "tolerance": DISC_TOL, "card_wall_s": walls["cuda"],
+              "cpu_wall_s": walls["cpu"], "card": smi}
+    emit(result)
+    if heads != [9, 9, 9, 9]:
+        raise AssertionError(f"discriminators: heads {heads}")
+    if not worst <= DISC_TOL:
+        raise AssertionError(f"discriminators: card vs CPU {worst} > {DISC_TOL}")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1457,7 +1760,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         checkpoint_phase(root, eng, song, opts, main_out, wrappers, smi)
         cli_phase(root, wrappers, smi)
-        cover_phase(root, wrappers, smi)
+        cover = cover_phase(root, wrappers, smi)
+        serve_phase(root, cover, wrappers, smi)
+        prewarm_phase(root, main_out, smi)
 
     # ---- mangio-crepe path -------------------------------------------------
     t0 = time.perf_counter()
@@ -1701,6 +2006,8 @@ def main() -> int:
     if not (nof0_dist < 0.5 and v1_dist < 0.5):
         raise AssertionError(f"card vs CPU: no-f0 {nof0_dist} dB, v1 32 kHz {v1_dist} dB")
 
+    discriminator_phase(smi)
+
     sources = {
         "resblock_group": "polgen_rvc_tpu/ops/pallas_resblock.py:176",
         "conv_transpose": "polgen_rvc_tpu/ops/pallas_convtranspose.py:60",
@@ -1750,4 +2057,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--prewarm-child"]:
+        sys.exit(prewarm_child(*sys.argv[2:4]))
     sys.exit(main())

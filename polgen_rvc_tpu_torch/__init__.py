@@ -10,15 +10,18 @@ Layer map (mirrors the JAX package so each counterpart is easy to find):
     ops/        torch-semantics convs, STFT/mel, GRU, F0 decode, high-pass,
                 and the five hand-written CUDA kernels with their plain twins
     csrc/       the kernels' CUDA C++ sources, built with nvcc at first use
-    models/     synthesizer / NSF decoder / HuBERT / RMVPE / CREPE / FCPE as
-                functions of parameter dictionaries
+    models/     synthesizer / NSF decoder / HuBERT / RMVPE / CREPE / FCPE and
+                the HiFi-GAN discriminators as functions of parameter
+                dictionaries
     convert/    synthetic checkpoints and state-dict -> parameter dictionaries
     retrieval/  exact top-k feature retrieval
-    pipeline/   chunk planner, converter engine, output path, builders
+    pipeline/   chunk planner, converter engine, batch covers, prewarm,
+                output path, builders
     native/     host C++ (the FLAC codec, the effects chain), g++ at first use
     utils/      audio file I/O (WAV, mp3, FLAC), progress, metrics
     app/        file-to-file conversion, the CLIs, the mixdown, Edge-TTS
-                voice-over, voice-model installation
+                voice-over, voice-model and embedder installation, the web
+                UI server and its share tunnel
 
 Precision: float32 matmuls and convolutions run in full float32 (TF32 off,
 set by ``resolve_device``). The F0 pass and the VITS latent run in float32

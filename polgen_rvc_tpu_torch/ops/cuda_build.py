@@ -7,6 +7,11 @@ Libraries land in ``build/torch_kernels/`` at the repository root, named by
 a hash of their sources and flags, so an edited source rebuilds and an
 unchanged one loads as is. ``build_all`` starts one nvcc per source, all at
 once. Nothing here runs at import: the CPU has no nvcc and needs none.
+
+``build_all`` and ``load`` hold one lock of the process, so a library is
+built and loaded once whichever thread asks first (a server's job threads,
+``prewarm``); ``counts()`` gives how many libraries this process has built
+with nvcc and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -30,8 +36,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+_LOCK = threading.RLock()
 _LIBS: dict = {}
 _FNS: dict = {}
+_COUNTS = {"builds": 0, "loads": 0}
 
 
 def _nvcc() -> str:
@@ -52,54 +60,73 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build_all(names=KERNELS) -> dict:
-    """Compile every named kernel whose library is missing, in parallel.
+def build_all(names=KERNELS, max_workers: int | None = None) -> dict:
+    """Compile every named kernel whose library is missing, at most
+    max_workers nvcc processes at a time (all at once by default).
 
     Returns {name: ptxas report} for the libraries built by this call.
     Raises with nvcc's output when a build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp, out)
-    reports, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        os.replace(tmp, out)
-        reports[name] = log
-    if failed:
-        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
-    return reports
+    with _LOCK:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        todo = [name for name in names if not library_path(name).exists()]
+        if not todo:
+            return {}
+        nvcc = _nvcc()
+        width = len(todo) if max_workers is None else max(1, max_workers)
+        reports, failed = {}, []
+        for g0 in range(0, len(todo), width):
+            procs = {}
+            for name in todo[g0:g0 + width]:
+                out = library_path(name)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                procs[name] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                ), tmp, out)
+            for name, (proc, tmp, out) in procs.items():
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"{name}:\n{log}")
+                    continue
+                os.replace(tmp, out)
+                _COUNTS["builds"] += 1
+                reports[name] = log
+        if failed:
+            raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+        return reports
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, building it first if needed."""
-    if name not in _LIBS:
-        build_all((name,))
-        _LIBS[name] = ctypes.CDLL(str(library_path(name)))
-    return _LIBS[name]
+    with _LOCK:
+        if name not in _LIBS:
+            build_all((name,))
+            _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+            _COUNTS["loads"] += 1
+        return _LIBS[name]
+
+
+def counts() -> dict:
+    """{"builds": libraries compiled, "loads": libraries loaded} so far in
+    this process."""
+    with _LOCK:
+        return dict(_COUNTS)
 
 
 def bind(name: str, symbol: str, n_ptr: int, tail: tuple):
     """ctypes function `symbol` of kernel `name`: n_ptr pointer arguments,
     then the ctypes types in `tail`, then the stream; returns an int."""
     key = (name, symbol)
-    if key not in _FNS:
-        fn = getattr(load(name), symbol)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + list(tail) + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FNS[key] = fn
-    return _FNS[key]
+    fn = _FNS.get(key)
+    if fn is not None:
+        return fn
+    with _LOCK:
+        if key not in _FNS:
+            fn = getattr(load(name), symbol)
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + list(tail) + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _FNS[key] = fn
+        return _FNS[key]
 
 
 def launch(fn, *args):

@@ -1,7 +1,8 @@
 """The conversion engine: the port of polgen_rvc_tpu/pipeline/engine.py's
 ``VoiceConverter.convert`` on the rmvpe+, mangio-crepe and fcpe F0 paths
 and for no-f0 models, in eager PyTorch on one device; ``convert_batch``
-(pipeline/batch_cover.py) packs chunks of several songs into its batches.
+(pipeline/batch_cover.py) packs chunks of several songs into its batches,
+and ``prewarm`` (pipeline/prewarm.py) does a convert's first-call setup.
 
 Per song (``_prepare_song``): host high-pass, reflect pad and int16
 quantize (one upload, dequantized once on the device); quiet-point chunk
@@ -50,6 +51,7 @@ from .crepe_method import crepe_f0
 from .f0_file import apply_f0_file, coarse_f0_np
 from .fcpe_method import fcpe_f0, fcpe_f0_device
 from .output import change_rms, host_finalize, pack_int16, rows_to_audio
+from .prewarm import PrewarmMixin
 
 # (seed, chunk id, latent shape (C, frames), nsf length, device)
 #   -> (eps (C, frames), nsf noise (length,)), standard normal float32
@@ -79,7 +81,7 @@ class SongPrep:
     pitchf: Optional[torch.Tensor]
 
 
-class VoiceConverter(BatchCoverMixin):
+class VoiceConverter(BatchCoverMixin, PrewarmMixin):
     """Voice conversion over one (synthesizer, HuBERT, RMVPE, index) model
     set, plus CREPE weights for the mangio-crepe method and FCPE weights
     and config for fcpe. A no-f0 model (``synth_cfg.use_f0`` false) runs no

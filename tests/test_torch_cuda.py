@@ -669,3 +669,49 @@ def test_voice_pipeline_writes_flac_on_the_card(dev, tmp_path, monkeypatch):
     (want,) = written
     assert sr == 48000 and want.dtype == np.int16 and y.shape == (want.shape[0], 1)
     assert np.array_equal((y[:, 0] * 32768).astype(np.int16), want)
+
+
+def test_two_threads_share_a_converter(dev):
+    """One converter, as the UI server's job threads or two callers share
+    it, converting two different songs from two threads at once, three
+    times: each output equals its serial convert byte for byte (the kernel
+    builds and loads are locked; RMVPE's transposed convs flip cuDNN's
+    process-global deterministic flag under a lock while the other thread's
+    convs are planned)."""
+    import threading
+
+    from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions, EngineConfig
+    from polgen_rvc_tpu_torch.pipeline.factory import build_synthetic_converter
+
+    vc = build_synthetic_converter(
+        tiny=True, sr=48000, index_vectors=256, device=dev,
+        engine=EngineConfig(x_pad=1, x_query=2, x_center=3, x_max=4, chunk_batch=2,
+                            bucket_step_s=2, compute_dtype="bfloat16"))
+    opts = ConversionOptions(index_rate=0.5, protect=0.33, volume_envelope=0.25)
+    rng = np.random.default_rng(21)
+    songs = []
+    for seconds, f0 in ((6.0, 220.0), (4.5, 330.0)):
+        t = np.arange(int(seconds * 16000)) / 16000
+        songs.append((0.4 * np.sin(2 * np.pi * f0 * t * (1 + 0.01 * np.sin(2 * np.pi * 5 * t)))
+                      + 0.01 * rng.standard_normal(t.size)).astype(np.float32))
+    serial = [vc.convert(s, opts)[0] for s in songs]
+    for _ in range(3):
+        barrier = threading.Barrier(2)
+        outs, errors = [None, None], []
+
+        def work(i):
+            try:
+                barrier.wait(timeout=30)
+                outs[i] = vc.convert(songs[i], opts)[0]
+                torch.cuda.synchronize()
+            except Exception as e:  # reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not errors and not any(t.is_alive() for t in threads), errors
+        for got, want in zip(outs, serial):
+            assert got.shape == want.shape and np.array_equal(got, want)
