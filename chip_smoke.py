@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 It drives five paths: rmvpe+ (the main path), mangio-crepe, fcpe, a no-f0
-model and a v1 32 kHz model, and holds each of the five kernels against
-its plain twin. Phases, each printing one JSON line (any failure raises;
-exit code != 0):
+model and a v1 32 kHz model, and the main and no-f0 paths again on device
+meshes, and holds each of the five kernels against its plain twin.
+Phases, each printing one JSON line (any failure raises; exit code != 0):
   1. card:     nvidia-smi name and power limit, torch/CUDA versions, the
                parallel nvcc build of every kernel from csrc/ and its time,
                and the g++ build of the native FLAC codec and effects
@@ -161,6 +161,24 @@ exit code != 0):
                on the card and on the CPU: 9 heads each, every logit and
                feature map within 1e-4 of the CPU map's largest |value|;
                the card's wall time of one call.
+  mesh:        last, after every timed single-card path: the
+               counterpart of the JAX package's dryrun_multichip at full
+               width, on the main path's song, engine and options
+               (parallel/mesh.py), every converter over one making of the
+               main and no-f0 models' weights. (a) Meshes that name cuda:0
+               several times: 2x2 (data 2 x model 2: one row a data shard,
+               HuBERT tensor-parallel) with convert, convert_batch of the
+               batch songs and the no-f0 model's convert, held to
+               SPLIT_BOUND and NOF0_SPLIT_BOUND against the unsharded
+               converter; 2x1 (HuBERT whole) with convert, byte for byte
+               the unsharded output, and convert_batch, held to
+               SPLIT_BOUND; 1x1, byte for byte the main path's output. (b) Where the machine shows two cards or more, the
+               same runs on make_mesh() over the distinct cards; else a
+               "distinct_cards": false line. Each run: wall, kernel ms
+               under the profiler, launches (the synthesizer's kernels
+               n_data times main's per batch, the U-Net chain 112 a song),
+               int16 differences and mel distortion against the unsharded
+               converter's output (< 0.5 dB), cuda_build's counts.
 Then a "total" line with the script's seconds, the {"kernels": [...]}
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -1070,6 +1088,187 @@ def batch_phase(vc, song, opts, wrappers, smi, seconds=(60, 41, 23, 9)) -> dict:
         if entry["peak_int16"] < 1000:
             raise AssertionError(f"batch: the {entry['seconds']} s song is silent")
     return result
+
+
+def compare(out, ref, sr: int) -> dict:
+    """Two renditions of one input: lengths, bytes, int16 differences, mel
+    distortion (the repo's 0.5 dB gate)."""
+    from polgen_rvc_tpu_torch.utils.metrics import mel_distortion_db
+
+    entry = {"samples": [int(out.shape[0]), int(ref.shape[0])],
+             "identical": bool(np.array_equal(out, ref))}
+    if out.shape == ref.shape:
+        d = np.abs(out.astype(np.int32) - ref.astype(np.int32))
+        entry.update(max_abs_diff=int(d.max()), share_differing=float((d > 0).mean()),
+                     mel_distortion_db=mel_distortion_db(out, ref, sr))
+    return entry
+
+
+def mesh_run(label, mvc, song, opts, refs, wrappers, smi, n_batches, bounds,
+             songs=None, nof0=None) -> dict:
+    """One mesh converter against the unsharded outputs in refs: convert of
+    the song (warm-up, counts to 0, timed convert, counts read, profile),
+    then, where given, convert_batch of songs and the no-f0 converter nof0's
+    convert the same way. Launches must be n_data times the unsharded
+    path's per batch (the resblock group 36, conv-transpose 4, band
+    attention 6) and the U-Net chain's 112 a song (the F0 pass runs once, on
+    the primary device). Every rendition must have its reference's length
+    and stay below 0.5 dB; bounds["convert"], ["batch"] (each song) and
+    ["nof0"] hold its int16 differences ("identical": byte for byte, else
+    at most the largest count and distortion it gives)."""
+    from polgen_rvc_tpu_torch.ops import cuda_build
+
+    n_data = mvc.mesh.shape["data"]
+
+    def want(batches, songs_n, use_f0=True):
+        return {"resblock_group": 36 * n_data * batches,
+                "conv_transpose": 4 * n_data * batches,
+                "band_attention": 6 * n_data * batches,
+                "unet_chain": 112 * songs_n if use_f0 else 0, "viterbi": 0}
+
+    parts = {}
+    run = drive(mvc, song, opts, wrappers)
+    prof = profile_convert(mvc, song, opts)
+    parts["convert"] = {"wall_s": run["wall_s"], "realtime_factor": run["realtime_factor"],
+                        "kernel_ms": prof["device_busy_ms"],
+                        "device_idle_share": prof["device_idle_share"],
+                        "launches": run["launches"],
+                        "launches_expected": want(n_batches["convert"], 1),
+                        "repeatable": run["repeatable"],
+                        **compare(run["out"], refs["convert"], run["sr"])}
+    if songs is not None:
+        mvc.convert_batch(songs, opts)
+        zero_launches(wrappers)
+        t0 = time.perf_counter()
+        packed = mvc.convert_batch(songs, opts)
+        wall = time.perf_counter() - t0
+        launches = read_launches(wrappers)
+        bprof = profile_call(lambda: mvc.convert_batch(songs, opts))
+        parts["batch"] = {"wall_s": wall, "kernel_ms": bprof["device_busy_ms"],
+                          "launches": launches,
+                          "launches_expected": want(n_batches["batch"], len(songs)),
+                          "songs": [compare(out, ref, sr) for (out, sr), (ref, _)
+                                    in zip(packed, refs["batch"])]}
+    if nof0 is not None:
+        nrun = drive(nof0, song, opts, wrappers)
+        nprof = profile_convert(nof0, song, opts)
+        parts["nof0"] = {"wall_s": nrun["wall_s"], "kernel_ms": nprof["device_busy_ms"],
+                         "launches": nrun["launches"],
+                         "launches_expected": want(n_batches["convert"], 1, use_f0=False),
+                         **compare(nrun["out"], refs["nof0"], nrun["sr"])}
+    result = {"phase": "mesh", "run": label, "shape": mvc.mesh.shape,
+              "devices": [str(d) for d in mvc.mesh.devices.flat], **parts,
+              "bounds": {k: bounds[k] for k in parts},
+              "cuda_build": cuda_build.counts(), "card": smi}
+    emit(result)
+    for name, part in parts.items():
+        if part["launches"] != part["launches_expected"]:
+            raise AssertionError(f"mesh {label} {name}: launches {part['launches']}, "
+                                 f"expected {part['launches_expected']}")
+        bound = bounds[name]
+        for entry in part.get("songs", [part]):
+            if entry["samples"][0] != entry["samples"][1]:
+                raise AssertionError(f"mesh {label} {name}: lengths {entry['samples']}")
+            if not entry["mel_distortion_db"] < 0.5:
+                raise AssertionError(f"mesh {label} {name}: {entry['mel_distortion_db']} dB")
+            if bound == "identical" and not entry["identical"]:
+                raise AssertionError(f"mesh {label} {name}: not byte-equal to the "
+                                     "unsharded output")
+            if isinstance(bound, dict) and any(entry[k] > v for k, v in bound.items()):
+                raise AssertionError(
+                    f"mesh {label} {name}: {entry['max_abs_diff']} counts, "
+                    f"{entry['mel_distortion_db']} dB, beyond {bound}")
+    if not run["repeatable"]:
+        raise AssertionError(f"mesh {label}: two converts of the song differ")
+    return result
+
+
+# How far a sound mesh's output may lie from the unsharded converter's on
+# one card (largest int16 count, mel distortion in dB), each bound between
+# what sound meshes and wrong ones read on an NVIDIA H100 80GB HBM3 at
+# 700 W (mesh_stages.py; PERF.md section 6): sound 2x2 and 2x1 at
+# most 226 counts, 0.085 dB; biases added in each model shard 850 counts,
+# 0.23 dB; noise from another seed 9,395 counts, 2.0 dB. A split HuBERT
+# rounds each shard's partial product to bf16 before the sum, and a data
+# shard of one row differs from the two-row batch where cuDNN picks its
+# algorithm by row count (enc_p's FFN conv2 at 1,998 frames; not at the 60
+# s song's 3,998, where 2x1 gives the unsharded bytes). The no-f0 model's
+# output moves more with its content features: sound 638 counts, 0.111 dB;
+# biases per shard 2,879 counts, 0.51 dB.
+SPLIT_BOUND = {"max_abs_diff": 400, "mel_distortion_db": 0.15}
+NOF0_SPLIT_BOUND = {"max_abs_diff": 1200, "mel_distortion_db": 0.25}
+
+
+def mesh_phase(eng, song, opts, main_out, wrappers, smi,
+               seconds=(60, 41, 23, 9)) -> dict:
+    """The counterpart of the JAX package's dryrun_multichip at full width,
+    on the main path's song, engine and options, over one making of the
+    main path's weights (seed 0) and the no-f0 model's. (a) Meshes over
+    cuda:0 named several times (the stand-in for JAX's virtual devices):
+    2x2 (data 2 x model 2, one row a data shard, HuBERT tensor-parallel)
+    with convert, convert_batch of the batch phase's songs and the no-f0
+    model's convert; 2x1 (HuBERT whole, one row a shard) with convert and
+    convert_batch; 1x1, byte for byte the main path's output. (b) Where
+    the machine shows two cards or more, the same runs on make_mesh() over
+    the distinct cards (data = count, or count / 2 x model 2 for an even
+    count >= 4); else "distinct_cards": false and no run. Every reference
+    is the unsharded converter's output for the same input and engine."""
+    import torch
+
+    from polgen_rvc_tpu_torch.parallel import make_mesh
+    from polgen_rvc_tpu_torch.pipeline.batch_cover import pack_work
+    from polgen_rvc_tpu_torch.pipeline.engine import VoiceConverter
+    from polgen_rvc_tpu_torch.pipeline.factory import synthetic_params
+
+    names = ("synth_cfg", "synth_params", "hubert_cfg", "hubert_params",
+             "rmvpe_params", "index_bank")
+    models = {use_f0: dict(zip(names, synthetic_params(
+        tiny=False, sr=48000, index_vectors=65536, seed=0, use_f0=use_f0)))
+        for use_f0 in (True, False)}
+    songs = [song[:s * eng.sample_rate] for s in seconds]
+
+    def build(engine, mesh=None, use_f0=True):
+        return VoiceConverter(**models[use_f0], engine=engine,
+                              device=None if mesh else "cuda", mesh=mesh)
+
+    def references(engine):
+        unsharded, nof0 = build(engine), build(engine, use_f0=False)
+        plans = [unsharded._prepare_song(x, opts).plan for x in songs]
+        refs = {"convert": unsharded.convert(song, opts)[0],
+                "batch": unsharded.convert_batch(songs, opts),
+                "nof0": nof0.convert(song, opts)[0]}
+        return refs, {"convert": len(unsharded._batch_geometry(plans[0])[0]),
+                      "batch": len(pack_work(plans, engine))}
+
+    refs, n_batches = references(eng)
+    if not np.array_equal(refs["convert"], main_out):
+        raise AssertionError("mesh: the unsharded reference is not the main path's output")
+
+    split = {"convert": SPLIT_BOUND, "batch": SPLIT_BOUND, "nof0": NOF0_SPLIT_BOUND}
+    runs = []
+    one = ["cuda:0"]
+    for label, shape, bounds, kw in (
+            ("2x2_one_card", (2, 2), split, {"songs": songs, "nof0": True}),
+            ("2x1_one_card", (2, 1), {**split, "convert": "identical"}, {"songs": songs}),
+            ("1x1", (1, 1), {"convert": "identical"}, {})):
+        mesh = make_mesh(*shape, devices=one * (shape[0] * shape[1]))
+        nof0 = build(eng, mesh, use_f0=False) if kw.pop("nof0", False) else None
+        runs.append(mesh_run(label, build(eng, mesh), song, opts, refs, wrappers, smi,
+                             n_batches, bounds, nof0=nof0, **kw))
+        del nof0
+    count = torch.cuda.device_count()
+    emit({"phase": "mesh", "distinct_cards": count >= 2, "device_count": count})
+    if count >= 2:
+        n_model = 2 if count % 2 == 0 and count >= 4 else 1
+        mesh = make_mesh(n_model=n_model)
+        n_data = mesh.shape["data"]
+        beng = eng if eng.chunk_batch % n_data == 0 else dataclasses.replace(
+            eng, chunk_batch=n_data)
+        brefs, bn = (refs, n_batches) if beng is eng else references(beng)
+        runs.append(mesh_run("distinct_cards", build(beng, mesh), song, opts, brefs,
+                             wrappers, smi, bn, split, songs=songs,
+                             nof0=build(beng, mesh, use_f0=False)))
+    return {"runs": runs}
 
 
 F0_FILE_SECONDS = 20
@@ -2007,6 +2206,9 @@ def main() -> int:
         raise AssertionError(f"card vs CPU: no-f0 {nof0_dist} dB, v1 32 kHz {v1_dist} dB")
 
     discriminator_phase(smi)
+    # last, so that its converters and allocations cannot change what a
+    # timed single-card path measures (a CREPE conv's cuDNN algorithm)
+    mesh_phase(eng, song, opts, main_out, wrappers, smi)
 
     sources = {
         "resblock_group": "polgen_rvc_tpu/ops/pallas_resblock.py:176",

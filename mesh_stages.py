@@ -1,0 +1,295 @@
+#!/usr/bin/env python3
+"""Where a mesh's output parts from the unsharded converter's on one card,
+and what a wrong mesh reads.
+
+    python3 mesh_stages.py [--out build/mesh_stages.json]
+
+The full-width 48 kHz v2 model, bf16 engine, options and 60 s song of
+chip_smoke.py's main path, and its batch phase's four songs cut from it
+(convert_batch packs them into three chunk batches of two rows; the
+first is also the 60 s song's convert batch). On a mesh whose places all
+name cuda:0, a data shard runs a batch's rows apart; this script takes
+each packed batch apart the same way:
+
+  ops:    the batch's row work (``_shard_rows``: HuBERT, retrieval, protect,
+          synthesizer, trim) once on both rows and once on each row alone
+          (the rows of a 2x1 mesh), under a torch function mode that
+          fingerprints every call's output bit for bit and keeps the small
+          ones. For each row, the first calls whose row differs between the
+          two runs, with the port's calling line and the largest
+          difference, and the number of differing calls in each module.
+  hubert: each HuBERT layer's output for each row alone, whole and split
+          over two model shards on cuda:0 (a 2x2 mesh's rows), against the
+          two-row unsharded batch and against the row alone: the row
+          split's and the tensor split's parts of the difference apart.
+  reads:  int16 differences (largest, share of samples) and mel distortion
+          against the unsharded converter's output, for the 2x2 and 2x1
+          meshes (convert of the song and convert_batch of the batch
+          phase's songs) and the no-f0 model on 2x2, each beside two wrong
+          meshes: o's and fc2's biases added in each of the two model
+          shards (2x2), and every row's noise drawn from another seed. The
+          bounds in chip_smoke.py's mesh phase lie between the two.
+
+Prints one JSON line and writes it to --out, with the nvidia-smi name and
+power limit. Checks nothing: chip_smoke.py does.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import difflib
+import json
+import os
+import subprocess
+import sys
+import traceback
+
+import torch
+from torch.overrides import TorchFunctionMode
+
+from chip_smoke import BENCH_OPTS, BENCH_TIERS, SONG_SECONDS, bench_song
+
+PORT = os.path.join("polgen_rvc_tpu_torch", "")
+SONG_CUTS = (60, 41, 23, 9)  # the batch phase's songs, cut from the 60 s song
+KEEP_BYTES = 64 << 20  # outputs kept whole for their largest difference
+# allocations whose bytes a kernel writes later: nothing to compare yet
+UNWRITTEN = {"empty", "empty_like", "new_empty", "empty_strided"}
+BIT_VIEWS = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+             torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def port_site() -> str:
+    """The innermost calling line inside the port's package."""
+    for frame in reversed(traceback.extract_stack()[:-2]):
+        if PORT in frame.filename:
+            return f"{frame.filename.split(PORT, 1)[1]}:{frame.lineno}"
+    return "?"
+
+
+def fingerprint(t: torch.Tensor) -> torch.Tensor:
+    """(rows,) int64: a weighted sum of each row's bits, equal for equal
+    rows and almost surely unequal otherwise."""
+    bits = t.view(BIT_VIEWS[t.dtype]) if t.dtype in BIT_VIEWS else t
+    flat = bits.reshape(t.shape[0], -1).to(torch.int64)
+    weights = torch.arange(1, flat.shape[1] + 1, device=t.device, dtype=torch.int64)
+    return (flat * (weights * 2654435761 % 1000003)).sum(dim=1)
+
+
+class Tape(TorchFunctionMode):
+    """Every torch call's tensor output with `rows` rows: its name, port
+    line, per-row fingerprint and, when small, a copy."""
+
+    def __init__(self, rows: int):
+        super().__init__()
+        self.rows = rows
+        self.calls = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = getattr(func, "__name__", str(func))
+        entry = {"name": name, "site": port_site()}
+        if (name not in UNWRITTEN and isinstance(out, torch.Tensor) and out.dim() and out.shape[0] == self.rows
+                and out.numel() and not out.is_complex() and out.dtype != torch.bool):
+            entry["shape"] = list(out.shape)
+            entry["dtype"] = str(out.dtype).replace("torch.", "")
+            entry["fp"] = fingerprint(out.detach())
+            if out.numel() * out.element_size() <= KEEP_BYTES:
+                entry["copy"] = out.detach().clone()
+        self.calls.append(entry)
+        return out
+
+
+def rows_of(inputs: dict, r: int) -> dict:
+    return {k: None if v is None else v[r:r + 1] for k, v in inputs.items()}
+
+
+def capture_batches(vc, songs, opts):
+    """Each packed chunk batch's _shard_rows arguments during a
+    convert_batch of songs."""
+    seen = []
+    real = type(vc)._shard_rows
+
+    def grab(shard, inp, *rest):
+        seen.append((shard, inp, rest))
+        return real(vc, shard, inp, *rest)
+
+    vc._shard_rows = grab
+    try:
+        vc.convert_batch(songs, opts)
+    finally:
+        del vc._shard_rows
+    return seen
+
+
+def op_diff(vc, shard, inp, rest) -> dict:
+    """Row r of the two-row run against row r run alone, call by call."""
+    with Tape(2) as both:
+        vc._shard_rows(shard, inp, *rest)
+    result = {"calls_two_rows": len(both.calls), "rows": []}
+    for r in range(2):
+        with Tape(1) as alone:
+            vc._shard_rows(shard, rows_of(inp, r), *rest)
+        names = [c["name"] for c in both.calls], [c["name"] for c in alone.calls]
+        blocks = difflib.SequenceMatcher(None, *names, autojunk=False).get_matching_blocks()
+        pairs = [(both.calls[i + k], alone.calls[j + k]) for i, j, n in blocks
+                 for k in range(n)]
+        first, by_module, compared = [], collections.Counter(), 0
+        for a, b in pairs:
+            if "fp" not in a or "fp" not in b:
+                continue
+            if a["shape"][1:] != b["shape"][1:]:
+                continue
+            compared += 1
+            if int(a["fp"][r]) == int(b["fp"][0]):
+                continue
+            by_module[a["site"].split(":")[0]] += 1
+            if len(first) < 12:
+                item = {"name": a["name"], "site": a["site"], "shape": b["shape"],
+                        "dtype": b["dtype"]}
+                if "copy" in a and "copy" in b:
+                    d = (a["copy"][r:r + 1].double() - b["copy"].double()).abs()
+                    item["max_abs_diff"] = float(d.max())
+                    item["share_differing"] = float((d > 0).double().mean())
+                    item["max_abs"] = float(b["copy"].double().abs().max())
+                first.append(item)
+        result["rows"].append({"row": r, "calls_alone": len(alone.calls),
+                               "aligned_calls": len(pairs),
+                               "compared": compared,
+                               "differing": sum(by_module.values()),
+                               "differing_by_module": dict(by_module),
+                               "first_differing": first})
+    return result
+
+
+def hubert_layers(vc, inp, bucket) -> dict:
+    """Per layer, max |difference| of each row's features: alone (whole),
+    alone split over two model shards, against the two-row batch, and the
+    split against the whole alone."""
+    from polgen_rvc_tpu_torch.models.hubert import hubert_extract_tp
+    from polgen_rvc_tpu_torch.parallel import make_mesh, shard_hubert_params
+
+    cfg, dev = vc.hubert_cfg, vc.device
+    tp = shard_hubert_params(vc.hubert_params, make_mesh(1, 2, devices=[dev, dev]),
+                             cfg.n_heads)[0]
+
+    def feats(shards, sl, layer):
+        hub_pad = (torch.arange(cfg.num_frames(bucket), device=dev)[None, :]
+                   >= inp["hub_valid"][sl][:, None])
+        return hubert_extract_tp(shards, [dev] * len(shards), cfg, inp["wav"][sl],
+                                 output_layer=layer, compute_dtype=vc.compute_dtype,
+                                 padding_mask=hub_pad,
+                                 valid_samples=inp["samp_lens"][sl]).float()
+
+    out = []
+    for layer in range(1, cfg.n_layers + 1):
+        two = feats([vc.hubert_params], slice(0, 2), layer)
+        entry = {"layer": layer, "max_abs": float(two.abs().max())}
+        for r in range(2):
+            sl = slice(r, r + 1)
+            whole = feats([vc.hubert_params], sl, layer)
+            split = feats(tp, sl, layer)
+            entry[f"row{r}"] = {
+                "whole_vs_batch": float((whole - two[sl]).abs().max()),
+                "split_vs_batch": float((split - two[sl]).abs().max()),
+                "split_vs_whole": float((split - whole).abs().max())}
+        out.append(entry)
+    return {"layers": out}
+
+
+def reads(song, opts) -> dict:
+    from chip_smoke import compare
+    from polgen_rvc_tpu_torch.parallel import make_mesh
+    from polgen_rvc_tpu_torch.pipeline.config import EngineConfig
+    from polgen_rvc_tpu_torch.pipeline.engine import VoiceConverter, torch_noise
+    from polgen_rvc_tpu_torch.pipeline.factory import synthetic_params
+
+    eng = EngineConfig(**BENCH_TIERS, compute_dtype="bfloat16")
+    names = ("synth_cfg", "synth_params", "hubert_cfg", "hubert_params",
+             "rmvpe_params", "index_bank")
+    songs = [song[:s * eng.sample_rate] for s in SONG_CUTS]
+
+    def other_seed(seed, chunk_id, *rest):
+        return torch_noise(seed + 1, chunk_id, *rest)
+
+    def build(model, shape=None, noise=torch_noise):
+        mesh = None if shape is None else make_mesh(*shape, devices=["cuda:0"] * (
+            shape[0] * shape[1]))
+        return VoiceConverter(**dict(zip(names, model)), engine=eng,
+                              device=None if mesh else "cuda:0", mesh=mesh,
+                              noise_provider=noise)
+
+    def bias_per_shard(vc):
+        """o's and fc2's biases twice, as a split that adds them in each of
+        two model shards: the reduction takes each device's first shard's
+        (one tree, which the data shards on one device share)."""
+        trees = {id(s.hubert_params[0]): s.hubert_params[0] for s in vc._data_shards()}
+        for tree in trees.values():
+            for lp in tree["encoder"]["layers"]:
+                lp["attn"]["o"]["b"] = lp["attn"]["o"]["b"] * 2
+                lp["fc2"]["b"] = lp["fc2"]["b"] * 2
+        return vc
+
+    out = {}
+    for model_name, use_f0 in (("f0", True), ("nof0", False)):
+        model = synthetic_params(tiny=False, sr=48000, index_vectors=65536, seed=0,
+                                 use_f0=use_f0)
+        ref_vc = build(model)
+        ref = ref_vc.convert(song, opts)[0]
+        ref_batch = ref_vc.convert_batch(songs, opts) if use_f0 else None
+        del ref_vc
+        runs = {"2x2": lambda: build(model, (2, 2)),
+                "2x2_wrong_bias_per_shard": lambda: bias_per_shard(build(model, (2, 2))),
+                "2x2_wrong_noise": lambda: build(model, (2, 2), other_seed)}
+        if use_f0:
+            runs.update({"2x1": lambda: build(model, (2, 1)),
+                         "2x1_wrong_noise": lambda: build(model, (2, 1), other_seed)})
+        for label, make in runs.items():
+            vc = make()
+            entry = {"convert": compare(vc.convert(song, opts)[0], ref, 48000)}
+            if use_f0:
+                entry["batch"] = [compare(o, r, 48000) for (o, _), (r, _)
+                                  in zip(vc.convert_batch(songs, opts), ref_batch)]
+            out[f"{model_name}_{label}"] = entry
+            del vc
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join("build", "mesh_stages.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("mesh_stages.py needs a CUDA device", file=sys.stderr)
+        return 1
+    from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions, EngineConfig
+    from polgen_rvc_tpu_torch.pipeline.factory import build_synthetic_converter
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    eng = EngineConfig(**BENCH_TIERS, compute_dtype="bfloat16")
+    vc = build_synthetic_converter(tiny=False, sr=48000, index_vectors=65536,
+                                   engine=eng, device="cuda")
+    song = bench_song(SONG_SECONDS)
+    opts = ConversionOptions(**BENCH_OPTS)
+    songs = [song[:s * eng.sample_rate] for s in SONG_CUTS]
+    vc.convert_batch(songs, opts)
+    result = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+              "batches": []}
+    for shard, inp, rest in capture_batches(vc, songs, opts):
+        result["batches"].append({"rows": int(inp["wav"].shape[0]), "bucket": rest[0],
+                                  "ops": op_diff(vc, shard, inp, rest),
+                                  "hubert": hubert_layers(vc, inp, rest[0])})
+    del vc, shard, inp
+    torch.cuda.empty_cache()
+    result["reads"] = reads(song, opts)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

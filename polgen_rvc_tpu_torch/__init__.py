@@ -1,6 +1,6 @@
 """PolGen-RVC on PyTorch and CUDA: voice conversion with the rmvpe+,
 mangio-crepe and fcpe F0 methods, for f0 and no-f0, v1 and v2 models at
-32, 40 and 48 kHz, on one NVIDIA H100 (sm_90a).
+32, 40 and 48 kHz, on NVIDIA H100 cards (sm_90a): one, or a mesh of them.
 
 A second implementation of the system beside the JAX package, held against
 it by the tests. It imports torch, numpy and scipy, never jax, and keeps its
@@ -17,6 +17,8 @@ Layer map (mirrors the JAX package so each counterpart is easy to find):
     retrieval/  exact top-k feature retrieval
     pipeline/   chunk planner, converter engine, batch covers, prewarm,
                 output path, builders
+    parallel/   the ("data", "model") device mesh: chunk rows split over
+                data shards, HuBERT's heads and FFN over model shards
     native/     host C++ (the FLAC codec, the effects chain), g++ at first use
     utils/      audio file I/O (WAV, mp3, FLAC), progress, metrics
     app/        file-to-file conversion, the CLIs, the mixdown, Edge-TTS
@@ -40,8 +42,10 @@ def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names one.
 
     Raises when CUDA is asked for (or defaulted to) and absent: nothing
-    falls back to the CPU on its own. Also pins float32 math to full
-    precision (no TF32 in matmuls or cuDNN convolutions)."""
+    falls back to the CPU on its own. A CUDA device comes back indexed
+    ("cuda" as the current card, e.g. cuda:0), so it compares equal to the
+    device its tensors report. Also pins float32 math to full precision
+    (no TF32 in matmuls or cuDNN convolutions)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda" if device is None else device)
@@ -49,4 +53,6 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

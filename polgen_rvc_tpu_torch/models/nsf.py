@@ -49,7 +49,13 @@ def sine_source(f0, upp: int, sample_rate: int, *, noise=None,
     f0 = f0.float()
     rad_f = torch.remainder(f0 / sample_rate, 1.0)
     per_frame = torch.remainder(rad_f * upp, 1.0)
-    start = torch.remainder(torch.cumsum(per_frame, dim=-1) - per_frame, 1.0)
+    # each row's running sum alone: the card's scan splits a (B, T) cumsum
+    # by its row count, so a row summed beside others differs in its last
+    # bits from the row summed alone, and a mesh's data shard (fewer rows)
+    # would not give the unsharded batch's bytes
+    rows = per_frame.reshape(-1, per_frame.shape[-1])
+    csum = torch.stack([torch.cumsum(r, dim=0) for r in rows]).reshape(per_frame.shape)
+    start = torch.remainder(csum - per_frame, 1.0)
     k = torch.arange(1, upp + 1, dtype=torch.float32, device=f0.device)
     phase = (start[..., None] + rad_f[..., None] * k).reshape(*f0.shape[:-1], -1)
     sine = torch.sin(2.0 * math.pi * phase) * sine_amp

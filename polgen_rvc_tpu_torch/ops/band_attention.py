@@ -103,7 +103,7 @@ def band_attention(q, k, v, rel_k, rel_v, lengths, window: int):
     out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
     fn = cuda_build.bind("band_attention", "band_attention", 7,
                          (ctypes.c_int,) * 5)
-    cuda_build.launch(fn, *(cuda_build.ptr(a) for a in (*ops, lens, out)),
+    cuda_build.launch(fn, q.device, *(cuda_build.ptr(a) for a in (*ops, lens, out)),
                       bh, t, dk, window, int(q.dtype == torch.float32))
     band_attention.launches += 1
     return out

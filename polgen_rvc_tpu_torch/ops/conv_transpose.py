@@ -113,7 +113,7 @@ def conv_transpose1d(x, w, b, *, stride: int, padding: int, taps=None):
                          (ctypes.c_int,) * 7)
     bias = torch.zeros(c_out, device=x.device) if b is None else b
     y = torch.empty(bsz, c_out, t * stride, device=x.device, dtype=x.dtype)
-    cuda_build.launch(fn, cuda_build.ptr(x), cuda_build.ptr(taps),
+    cuda_build.launch(fn, x.device, cuda_build.ptr(x), cuda_build.ptr(taps),
                       cuda_build.ptr(bias), cuda_build.ptr(y),
                       bsz, c_in, c_out, t, stride, padding,
                       int(x.dtype == torch.bfloat16))

@@ -129,11 +129,15 @@ def bind(name: str, symbol: str, n_ptr: int, tail: tuple):
         return _FNS[key]
 
 
-def launch(fn, *args):
-    """Call a bound kernel entry on the current stream; raise on a CUDA
-    error reported by the launch."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*args, ctypes.c_void_p(stream))
+def launch(fn, device: torch.device, *args):
+    """Call a bound kernel entry on `device`, the device of the launch's
+    tensors (each wrapper passes its first tensor's): under that device's
+    guard, so the runtime calls inside the entry (cudaFuncSetAttribute, the
+    launch) address it, and on that device's current stream, not the
+    current device's. Raise on a CUDA error reported by the launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
 

@@ -169,7 +169,7 @@ def resblock_pair(src, conv1, conv2, kernel_size: int, dilation: int, *,
                                                 ctypes.c_float, ctypes.c_int,
                                                 ctypes.c_int))
     cuda_build.launch(
-        fn, cuda_build.ptr(src), cuda_build.ptr(conv1["w_taps"]),
+        fn, src.device, cuda_build.ptr(src), cuda_build.ptr(conv1["w_taps"]),
         cuda_build.ptr(conv1["b"]), cuda_build.ptr(conv2["w_taps"]),
         cuda_build.ptr(conv2["b"]),
         cuda_build.ptr(acc) if acc is not None else ctypes.c_void_p(None),

@@ -178,7 +178,8 @@ def unet_conv3x3(src, conv, *, res=None, shortcut=None, out_dtype=torch.float32)
     null = ctypes.c_void_p(None)
     fn = cuda_build.bind("unet_chain", "unet_conv3x3", 7, (ctypes.c_int,) * 10)
     cuda_build.launch(
-        fn, cuda_build.ptr(src), cuda_build.ptr(conv["w_taps"]), cuda_build.ptr(conv["b"]),
+        fn, src.device, cuda_build.ptr(src), cuda_build.ptr(conv["w_taps"]),
+        cuda_build.ptr(conv["b"]),
         null if res is None else cuda_build.ptr(res),
         null if shortcut is None else cuda_build.ptr(shortcut["w_mat"]),
         null if shortcut is None else cuda_build.ptr(shortcut["b"]),

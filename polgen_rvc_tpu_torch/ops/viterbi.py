@@ -145,7 +145,7 @@ def _forward(log_obs, n: int):
     rows = torch.empty((n, PITCH_BINS), dtype=torch.float32, device=log_obs.device)
     fn = cuda_build.bind("viterbi", "viterbi_forward", 3,
                          (ctypes.c_int, ctypes.c_float, ctypes.c_float))
-    cuda_build.launch(fn, *(cuda_build.ptr(a) for a in
+    cuda_build.launch(fn, log_obs.device, *(cuda_build.ptr(a) for a in
                             (log_obs, _band_on(log_obs.device), rows)),
                       n, float(LOG_EPS), float(LOG_INIT))
     return rows
@@ -160,7 +160,7 @@ def _backpointers(rows, n: int):
                        device=rows.device)
     fn = cuda_build.bind("viterbi", "viterbi_backpointers", 4,
                          (ctypes.c_int, ctypes.c_float))
-    cuda_build.launch(fn, *(cuda_build.ptr(a) for a in
+    cuda_build.launch(fn, rows.device, *(cuda_build.ptr(a) for a in
                             (rows, _band_on(rows.device), back, maps)),
                       n, float(LOG_EPS))
     return back, maps
@@ -171,7 +171,7 @@ def _walk(rows, back, maps, t_len: int, n: int):
     the span maps and the backpointers."""
     path = torch.empty(t_len, dtype=torch.int32, device=rows.device)
     fn = cuda_build.bind("viterbi", "viterbi_walk", 4, (ctypes.c_int, ctypes.c_int))
-    cuda_build.launch(fn, *(cuda_build.ptr(a) for a in (rows, back, maps, path)),
+    cuda_build.launch(fn, rows.device, *(cuda_build.ptr(a) for a in (rows, back, maps, path)),
                       t_len, n)
     return path
 

@@ -6,7 +6,8 @@ quantize, chunk plan, one F0 pass on the device); then a global work list
 of (song, chunk) pairs, sorted by each chunk's own bucket class, runs
 ``chunk_batch`` rows at a time, each batch padded to its largest chunk;
 then each song's rows, in chunk order, take the whole-song RMS gain, int16
-pack and host finalize that ``convert`` applies. Noise is drawn per (seed,
+pack and host finalize that ``convert`` applies. On a mesh the packed
+batches shard over the data rows as ``convert``'s do (``_convert_rows``). Noise is drawn per (seed,
 song-local chunk id), so a row renders the same whatever rides beside it:
 a song whose chunks ride the buckets they ride in ``convert`` comes out
 byte for byte as ``convert`` gives it. A chunk on a larger bucket gives

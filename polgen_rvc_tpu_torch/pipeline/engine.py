@@ -1,6 +1,6 @@
 """The conversion engine: the port of polgen_rvc_tpu/pipeline/engine.py's
 ``VoiceConverter.convert`` on the rmvpe+, mangio-crepe and fcpe F0 paths
-and for no-f0 models, in eager PyTorch on one device; ``convert_batch``
+and for no-f0 models, in eager PyTorch on one device or a mesh; ``convert_batch``
 (pipeline/batch_cover.py) packs chunks of several songs into its batches,
 and ``prewarm`` (pipeline/prewarm.py) does a convert's first-call setup.
 
@@ -23,6 +23,12 @@ at that same fixed length (models/nsf.py), so on the card too a chunk's
 bytes do not depend on its bucket. Noise comes from a
 provider: by default a ``torch.Generator`` seeded from (seed, chunk id);
 the tests inject the JAX package's own draws instead.
+
+On a mesh (parallel/mesh.py, ``mesh=``) the per-song work stays on the
+mesh's primary device, and so do a batch's rows and noise, drawn as
+without a mesh; each data shard then takes its rows to its own devices
+and runs HuBERT (tensor-parallel over the row's model places), retrieval
+and the synthesizer there, and the trimmed rows come back in row order.
 """
 
 from __future__ import annotations
@@ -36,12 +42,13 @@ import torch
 from .. import resolve_device
 from ..convert.params import params_to_torch
 from ..models.crepe import pack_crepe_weights
-from ..models.hubert import HubertConfig, hubert_extract
+from ..models.hubert import HubertConfig, hubert_extract_tp
 from ..models.nsf import pack_decoder_weights
 from ..models.rmvpe import pack_rmvpe_weights, pad_frames_to_32, rmvpe_mel, rmvpe_salience
 from ..models.synthesizer import SynthesizerConfig, synthesizer_infer
 from ..ops.f0_utils import coarse_f0, salience_to_f0
 from ..ops.filters import highpass_pad_quant
+from ..parallel.mesh import Mesh, replicate, shard_batch, shard_hubert_params
 from ..retrieval.topk import retrieval_blend
 from ..utils.progress import NULL_PROGRESS, ProgressReporter
 from .batch_cover import BatchCoverMixin, bucket_class
@@ -66,6 +73,21 @@ def torch_noise(seed: int, chunk_id: int, lat_shape: tuple, nsf_len: int,
     eps = torch.randn(lat_shape, generator=g, device=device)
     nsf = torch.randn(nsf_len, generator=g, device=device)
     return eps, nsf
+
+
+@dataclasses.dataclass
+class DataShard:
+    """What one data row of the mesh runs its chunk rows with: its device
+    (the row's first), the synthesizer's parameters (kernel layouts
+    included) and the index bank there, and HuBERT as one tree per model
+    place (whole on one device when the mesh has one model place) with
+    those places' devices."""
+
+    device: torch.device
+    synth_params: dict
+    index_bank: Optional[torch.Tensor]
+    hubert_params: list
+    hubert_devices: list
 
 
 @dataclasses.dataclass
@@ -97,8 +119,19 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
                  engine: EngineConfig = EngineConfig(), device=None,
                  noise_provider: NoiseProvider = torch_noise,
                  crepe_params: Optional[dict] = None,
-                 fcpe_params: Optional[dict] = None, fcpe_cfg=None):
-        self.device = resolve_device(device)
+                 fcpe_params: Optional[dict] = None, fcpe_cfg=None,
+                 mesh: Optional[Mesh] = None):
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if device is not None and resolve_device(device) != mesh.primary:
+                raise ValueError(f"device {device} is not the mesh's primary "
+                                 f"device {mesh.primary}")
+            if engine.chunk_batch % mesh.shape["data"]:
+                raise ValueError(f"chunk_batch {engine.chunk_batch} does not split "
+                                 f"over {mesh.shape['data']} data shards")
+            self.device = resolve_device(mesh.primary)
+        self.mesh = mesh
         self.synth_cfg = synth_cfg
         self.hubert_cfg = hubert_cfg
         self.engine = engine
@@ -119,6 +152,32 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
         self.fcpe_params = (None if fcpe_params is None
                             else params_to_torch(fcpe_params, self.device))
         self.fcpe_cfg = fcpe_cfg
+        self._mesh_shards = None if mesh is None else self._place_on_mesh(mesh)
+
+    def _place_on_mesh(self, mesh: Mesh) -> list:
+        """One DataShard per data row d, on its first device devices[d, 0]:
+        the synthesizer's parameters and the index bank replicated there,
+        HuBERT replicated too when the mesh has one model place, else split
+        over the row's model places (shard_hubert_params), as the JAX
+        engine places them. A repeated device shares one copy."""
+        first = Mesh(mesh.devices[:, :1])
+        reps = replicate({"synth": self.synth_params, "bank": self.index_bank}, first)
+        if mesh.shape["model"] > 1:
+            hubert = shard_hubert_params(self.hubert_params, mesh, self.hubert_cfg.n_heads)
+        else:
+            whole = replicate(self.hubert_params, first)
+            hubert = [[whole[dev]] for dev in first.devices[:, 0]]
+        return [DataShard(dev, reps[dev]["synth"], reps[dev]["bank"], hubert[d],
+                          list(mesh.devices[d]))
+                for d, dev in enumerate(mesh.devices[:, 0])]
+
+    def _data_shards(self) -> list:
+        """The DataShards a chunk batch's rows split over: without a mesh,
+        one on self.device over the converter's own parameters."""
+        if self._mesh_shards is not None:
+            return self._mesh_shards
+        return [DataShard(self.device, self.synth_params, self.index_bank,
+                          [self.hubert_params], [self.device])]
 
     # ------------------------------------------------------------------
     # geometry (identical to the JAX engine's)
@@ -248,12 +307,12 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
     # one chunk batch
     # ------------------------------------------------------------------
 
-    def _chunk_batch(self, rows, bucket: int, p_len: int,
-                     opts: ConversionOptions, use_index: bool, use_protect: bool):
-        """Rows of trimmed, valid-masked float32 audio (B, out_len)."""
-        eng, dev, cdt = self.engine, self.device, self.compute_dtype
-        B = eng.chunk_batch
-        hub_frames = self.hubert_cfg.num_frames(bucket)
+    def _batch_inputs(self, rows, bucket: int, p_len: int):
+        """A batch's rows on self.device: {"wav" (B, bucket), "samp_lens",
+        "hub_valid" (B,), "pitch", "pitchf" (B, p_len) or None without F0,
+        "mask" (B, p_len)}, and "ids", the rows' chunk ids (host ints) that
+        key their noise."""
+        dev = self.device
 
         def put(a):
             return torch.as_tensor(a, device=dev)
@@ -262,60 +321,88 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
         # batch's songs laid end to end, each followed by a bucket of zero
         # samples and p_len frames of unvoiced pitch
         srcs, song = rows["sources"], rows["song"]
-        use_f0 = self.synth_cfg.use_f0
         span = torch.arange(bucket, device=dev)
         base = np.cumsum([0] + [x.shape[0] + bucket for x, _, _ in srcs])
         buf_ext = torch.cat([t for x, _, _ in srcs for t in (x, x.new_zeros(bucket))])
         wav = buf_ext[put(base[song] + rows["samp_starts"])[:, None] + span[None, :]]
         samp_lens = put(rows["samp_lens"])
         wav = torch.where(span[None, :] < samp_lens[:, None], wav, torch.zeros_like(wav))
-        if use_f0:
+        frame_mask = put(rows["mask"])
+        pitch = pitchf = None
+        if self.synth_cfg.use_f0:
             fbase = np.cumsum([0] + [p.shape[0] + p_len for _, p, _ in srcs])
             cols = (put(fbase[song] + rows["starts"])[:, None]
                     + torch.arange(p_len, device=dev)[None, :])
             pitch = torch.cat([t for _, p, _ in srcs for t in (p, p.new_ones(p_len))])[cols]
             pitchf = torch.cat([t for _, _, f in srcs for t in (f, f.new_zeros(p_len))])[cols]
-        frame_mask = put(rows["mask"])
-        if use_f0:
             valid = frame_mask > 0
             pitch = torch.where(valid, pitch, torch.ones_like(pitch))
             pitchf = torch.where(valid, pitchf, torch.zeros_like(pitchf))
-        else:
-            pitch = pitchf = None
+        return {"wav": wav, "samp_lens": samp_lens, "hub_valid": put(rows["hub_valid"]),
+                "pitch": pitch, "pitchf": pitchf, "mask": frame_mask,
+                "ids": np.asarray(rows["ids"][:self.engine.chunk_batch])}
 
+    def _split_rows(self, inputs: dict) -> list:
+        """The batch's inputs -> each data shard's B / n_data rows of them, on
+        that shard's device (shard_batch; the chunk ids stay on the host);
+        without a mesh, the inputs."""
+        if self.mesh is None:
+            return [inputs]
+        parts = [{} for _ in range(self.mesh.shape["data"])]
+        for name, value in inputs.items():
+            if value is None:
+                blocks = [None] * len(parts)
+            elif name == "ids":
+                blocks = np.split(value, len(parts))
+            else:
+                blocks = shard_batch(value, self.mesh)
+            for part, block in zip(parts, blocks):
+                part[name] = block
+        return parts
+
+    def _shard_rows(self, shard: "DataShard", inp: dict, bucket: int, p_len: int,
+                    opts: ConversionOptions, use_index: bool, use_protect: bool):
+        """One data shard's rows, on its device: HuBERT (tensor-parallel over
+        the shard's model devices) -> retrieval -> 2x frame repeat ->
+        protect mix -> synthesizer -> pad trim. (rows, out_len) float32."""
+        eng, dev, cdt = self.engine, shard.device, self.compute_dtype
         v1 = self.version == "v1"
         n_layers = self.hubert_cfg.n_layers
-        hub_pad = (torch.arange(hub_frames, device=dev)[None, :]
-                   >= put(rows["hub_valid"])[:, None])
-        feats = hubert_extract(
-            self.hubert_params, self.hubert_cfg, wav,
+        hub_pad = (torch.arange(self.hubert_cfg.num_frames(bucket), device=dev)[None, :]
+                   >= inp["hub_valid"][:, None])
+        feats = hubert_extract_tp(
+            shard.hubert_params, shard.hubert_devices, self.hubert_cfg, inp["wav"],
             output_layer=9 if (v1 and n_layers >= 9) else n_layers,
             final_proj=v1, compute_dtype=cdt, padding_mask=hub_pad,
-            valid_samples=samp_lens,
+            valid_samples=inp["samp_lens"],
         )
         feats0 = feats
         if use_index:
-            feats = retrieval_blend(feats, self.index_bank, float(opts.index_rate),
+            feats = retrieval_blend(feats, shard.index_bank, float(opts.index_rate),
                                     k=eng.retrieval_k)
         feats = feats.repeat_interleave(2, dim=1)[:, :p_len]
+        pitch, pitchf, frame_mask = inp["pitch"], inp["pitchf"], inp["mask"]
         if use_protect:
             feats0 = feats0.repeat_interleave(2, dim=1)[:, :p_len]
             pff = torch.where(pitchf > 0, 1.0, float(opts.protect)).to(feats.dtype)[..., None]
             feats = feats * pff + feats0 * (1.0 - pff)
 
-        # a no-f0 model draws the source noise too and leaves it unused, as
-        # the JAX engine splits and drops its source key
+        # each row's noise drawn on self.device by (seed, chunk id), as
+        # without a mesh, then moved with the row; a no-f0 model draws the
+        # source noise too and leaves it unused, as the JAX engine splits and
+        # drops its source key
         nf = self._noise_frames()
         upp = self.synth_cfg.upp
         draws = [self.noise_provider(opts.seed, int(ci),
-                                     (self.synth_cfg.inter_channels, nf),
-                                     nf * upp, dev)
-                 for ci in rows["ids"][:B]]
+                                     (self.synth_cfg.inter_channels, nf), nf * upp,
+                                     self.device)
+                 for ci in inp["ids"]]
         eps = torch.stack([e for e, _ in draws]).to(dev)
         nsf = torch.stack([n for _, n in draws]).to(dev)
-        sid = torch.full((B,), opts.speaker_id, dtype=torch.long, device=dev)
+        sid = torch.full((frame_mask.shape[0],), opts.speaker_id, dtype=torch.long,
+                         device=dev)
         audio = synthesizer_infer(
-            self.synth_params, self.synth_cfg, feats,
+            shard.synth_params, self.synth_cfg, feats,
             frame_mask[:, None, :], pitch, pitchf, sid, eps=eps, nsf_noise=nsf,
             noise_scale=eng.noise_scale, compute_dtype=cdt, dec_frames=nf,
         ).float()
@@ -326,6 +413,20 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
         trimmed = audio[:, t_pad_tgt:t_pad_tgt + out_len]
         idx = torch.arange(out_len, device=dev)[None, :]
         return torch.where(idx < nvalid[:, None], trimmed, torch.zeros_like(trimmed))
+
+    def _chunk_batch(self, rows, bucket: int, p_len: int,
+                     opts: ConversionOptions, use_index: bool, use_protect: bool):
+        """Rows of trimmed, valid-masked float32 audio (B, out_len) on
+        self.device. The rows and their noise are assembled there; each data
+        shard runs its rows on its own devices, every shard's work issued
+        before any shard's result is read back, and the rows come back in
+        row order (one shard's rows as they are: no copy)."""
+        inputs = self._batch_inputs(rows, bucket, p_len)
+        outs = [self._shard_rows(shard, part, bucket, p_len, opts, use_index, use_protect)
+                for shard, part in zip(self._data_shards(), self._split_rows(inputs))]
+        if len(outs) == 1:
+            return outs[0]
+        return torch.cat([out.to(self.device) for out in outs])
 
     # ------------------------------------------------------------------
     # per song, per batch, and the full pipeline

@@ -25,11 +25,14 @@ def build_converter(rvc_path: str, hubert_path: str,
                     crepe_path: Optional[str] = None,
                     fcpe_path: Optional[str] = None,
                     engine: EngineConfig = EngineConfig(),
-                    device=None) -> VoiceConverter:
+                    device=None, mesh=None) -> VoiceConverter:
     """A converter over checkpoint files on `device` (default CUDA; raises
-    without it unless device="cpu"): the RVC .pth, fairseq's HuBERT .pt,
-    optionally rmvpe.pt, a faiss .index, CREPE's full.pth and fcpe.pt."""
-    device = resolve_device(device)
+    without it unless device="cpu"), or over a mesh (parallel/mesh.py; a
+    device given with it must be its primary): the RVC .pth, fairseq's
+    HuBERT .pt, optionally rmvpe.pt, a faiss .index, CREPE's full.pth and
+    fcpe.pt."""
+    if mesh is None:
+        device = resolve_device(device)
     synth_cfg, synth_params, _ = load_rvc_checkpoint(rvc_path)
     hub_cfg, hub_params = load_hubert_checkpoint(hubert_path)
     rmvpe_params = load_rmvpe_checkpoint(rmvpe_path) if rmvpe_path else None
@@ -41,7 +44,7 @@ def build_converter(rvc_path: str, hubert_path: str,
         synth_cfg=synth_cfg, synth_params=synth_params, hubert_cfg=hub_cfg,
         hubert_params=hub_params, rmvpe_params=rmvpe_params, index_bank=bank,
         engine=engine, device=device, crepe_params=crepe_params,
-        fcpe_params=fcpe_params, fcpe_cfg=fcpe_cfg,
+        fcpe_params=fcpe_params, fcpe_cfg=fcpe_cfg, mesh=mesh,
     )
 
 
@@ -155,12 +158,14 @@ def build_synthetic_converter(*, tiny: bool = True, sr: int = 48000,
                               seed: int = 0, device=None,
                               noise_provider=torch_noise, use_f0: bool = True,
                               version: str = "v2", with_crepe: bool = False,
-                              with_fcpe: bool = False) -> VoiceConverter:
+                              with_fcpe: bool = False, mesh=None) -> VoiceConverter:
     """A converter over fabricated weights on `device` (default CUDA; raises
-    without it unless device="cpu"); use_f0=False builds a no-f0 model
-    (and no RMVPE), with_crepe adds full-width CREPE, with_fcpe an FCPE of
-    the model's width."""
-    device = resolve_device(device)
+    without it unless device="cpu"), or over a mesh (a device given with it
+    must be its primary); use_f0=False builds a no-f0 model (and no RMVPE),
+    with_crepe adds full-width CREPE, with_fcpe an FCPE of the model's
+    width."""
+    if mesh is None:
+        device = resolve_device(device)
     synth_cfg, synth_params, hub_cfg, hub_params, rmvpe_params, bank, *extra = (
         synthetic_params(tiny=tiny, sr=sr, index_vectors=index_vectors, seed=seed,
                          use_f0=use_f0, version=version, with_crepe=with_crepe,
@@ -172,5 +177,5 @@ def build_synthetic_converter(*, tiny: bool = True, sr: int = 48000,
         synth_cfg=synth_cfg, synth_params=synth_params, hubert_cfg=hub_cfg,
         hubert_params=hub_params, rmvpe_params=rmvpe_params, index_bank=bank,
         engine=engine, device=device, noise_provider=noise_provider,
-        crepe_params=crepe, fcpe_params=fcpe_params, fcpe_cfg=fcpe_cfg,
+        crepe_params=crepe, fcpe_params=fcpe_params, fcpe_cfg=fcpe_cfg, mesh=mesh,
     )

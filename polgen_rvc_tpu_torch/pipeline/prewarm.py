@@ -52,8 +52,11 @@ class PrewarmMixin:
         4. ``_finish_song`` on those rows when opts.volume_envelope != 1,
            for the RMS-envelope gain.
 
-        The device work runs in order on the one stream; only the nvcc
-        builds run in parallel. Returns the number of items warmed: the
+        The device work runs in order on each device's current stream; only
+        the nvcc builds run in parallel. On a mesh the chunk batches run
+        through the sharded path, so every distinct mesh device launches
+        each of its kernels once (CUDA loads a module per device at its
+        first launch there). Returns the number of items warmed: the
         kernel libraries of step 1 (none on the CPU, where the wrappers run
         their plain twins), plus 1 for the F0 pass of an f0 model, plus one
         per distinct bucket, plus 1 for the gain."""
@@ -78,5 +81,6 @@ class PrewarmMixin:
             self._finish_song(song, segments, opts)
             warmed += 1
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            for dev in (self.mesh.distinct() if self.mesh else [self.device]):
+                torch.cuda.synchronize(dev)
         return warmed

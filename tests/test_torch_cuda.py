@@ -715,3 +715,104 @@ def test_two_threads_share_a_converter(dev):
         assert not errors and not any(t.is_alive() for t in threads), errors
         for got, want in zip(outs, serial):
             assert got.shape == want.shape and np.array_equal(got, want)
+
+
+def test_kernel_on_a_side_stream(dev):
+    """A kernel launched while a side stream is current runs on that
+    stream: the default stream is held busy by a sleep queued first, and
+    the kernel's result is ready (its event on the side stream has fired)
+    while the sleep still runs. The result matches the plain twin."""
+    rng = np.random.default_rng(31)
+    u, k, pad = 10, 20, 5
+    x = _t(rng.standard_normal((2, 64, 300)) * 0.5, dev)
+    w = _t(rng.standard_normal((64, 32, k)) / np.sqrt(64 * k), dev)
+    b = _t(rng.standard_normal(32) * 0.02, dev)
+    taps = ct.pack_phase_taps(w.to(torch.bfloat16), u, pad)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=dev)
+    torch.cuda._sleep(2_000_000_000)  # ~1 s on the default stream
+    with torch.cuda.stream(side):
+        got = ct.conv_transpose1d(x, w, b, stride=u, padding=pad, taps=taps)
+        done = torch.cuda.Event()
+        done.record(side)
+    done.synchronize()
+    assert not torch.cuda.default_stream(dev).query(), "the sleep ended first"
+    torch.cuda.synchronize()
+    ref = ct.conv_transpose1d_plain(x, w, b, stride=u, padding=pad,
+                                    operand_dtype=torch.bfloat16)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
+def _mesh_song(seconds=5.0):
+    t = np.arange(int(seconds * 16000)) / 16000
+    return (0.4 * np.sin(2 * np.pi * 220 * t * (1 + 0.01 * np.sin(2 * np.pi * 5 * t)))
+            ).astype(np.float32)
+
+
+def _tiny_converter(**kw):
+    from polgen_rvc_tpu_torch.pipeline.config import EngineConfig
+    from polgen_rvc_tpu_torch.pipeline.factory import build_synthetic_converter
+
+    return build_synthetic_converter(
+        tiny=True, sr=48000, index_vectors=256,
+        engine=EngineConfig(x_pad=1, x_query=1, x_center=2, x_max=3, chunk_batch=2,
+                            bucket_step_s=2, compute_dtype="bfloat16"), **kw)
+
+
+def test_convert_on_a_repeated_card_mesh(dev):
+    """A tiny convert on a 2x2 mesh of cuda:0 named four times (one row a
+    data shard, HuBERT over two model shards): within the repo's 0.5 dB
+    gate of the unsharded convert, the synthesizer's kernels launched once
+    a data shard a batch."""
+    from polgen_rvc_tpu_torch.parallel import make_mesh
+    from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions
+    from polgen_rvc_tpu_torch.utils.metrics import mel_distortion_db
+
+    opts = ConversionOptions(index_rate=0.5, protect=0.33, volume_envelope=0.25)
+    song = _mesh_song()
+    want, sr = _tiny_converter(device=dev).convert(song, opts)
+    vc = _tiny_converter(mesh=make_mesh(2, 2, devices=["cuda:0"] * 4))
+    n_batches = len(vc._batch_geometry(vc._prepare_song(song, opts).plan)[0])
+    cfg = vc.synth_cfg
+    pairs = len(cfg.upsample_rates) * sum(len(d) for d in cfg.resblock_dilation_sizes)
+    before = rg.fused_resblock_group.launches
+    got, _ = vc.convert(song, opts)
+    assert rg.fused_resblock_group.launches - before == pairs * 2 * n_batches
+    assert got.shape == want.shape
+    assert mel_distortion_db(got, want, sr) < 0.5
+
+
+def test_convert_on_two_cards(dev, monkeypatch):
+    """Below two cards, skip. Else a 2x2 mesh whose data rows start on
+    cuda:0 and cuda:1 and whose model shards span both cards (HuBERT's
+    partial sums cross between them), with cuda:0 current: every launch of
+    the synthesizer's three kernels goes to its tensors' card, each kernel
+    launches on both cards, and the convert is within 0.5 dB of the
+    unsharded one."""
+    from polgen_rvc_tpu_torch.ops import cuda_build
+    from polgen_rvc_tpu_torch.parallel import make_mesh
+    from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions
+    from polgen_rvc_tpu_torch.utils.metrics import mel_distortion_db
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    seen = {}
+    real = cuda_build.launch
+
+    def spy(fn, device, *args):
+        seen.setdefault(fn.__name__, set()).add(device)
+        assert torch.cuda.current_device() == 0  # the launch guards, not the caller
+        return real(fn, device, *args)
+
+    monkeypatch.setattr(cuda_build, "launch", spy)
+    opts = ConversionOptions(index_rate=0.5, protect=0.33, volume_envelope=0.25)
+    song = _mesh_song()
+    torch.cuda.set_device(0)
+    want, sr = _tiny_converter(device="cuda:0").convert(song, opts)
+    mesh = make_mesh(2, 2, devices=["cuda:0", "cuda:1", "cuda:1", "cuda:0"])
+    got, _ = _tiny_converter(mesh=mesh).convert(song, opts)
+    cards = {torch.device("cuda:0"), torch.device("cuda:1")}
+    for name in ("resblock_pair", "conv_transpose_upsample", "band_attention"):
+        assert seen[name] == cards, (name, seen[name])
+    assert got.shape == want.shape
+    assert mel_distortion_db(got, want, sr) < 0.5
