@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 It drives five paths: rmvpe+ (the main path), mangio-crepe, fcpe, a no-f0
-model and a v1 32 kHz model, and the main and no-f0 paths again on device
-meshes, and holds each of the five kernels against its plain twin.
+model and a v1 32 kHz model, the main and no-f0 paths again on device
+meshes, and batch covers split over two processes, and holds each of the
+five kernels against its plain twin.
 Phases, each printing one JSON line (any failure raises; exit code != 0):
   1. card:     nvidia-smi name and power limit, torch/CUDA versions, the
                parallel nvcc build of every kernel from csrc/ and its time,
@@ -23,7 +24,8 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                pairs, one chunk batch), the U-Net chain kernel exactly 112
                times (14 levels x 4 blocks x 2 convs).
                The output must have the planned length, not be silent,
-               and repeat the warm-up convert's bytes.
+               and repeat the warm-up convert's bytes; its SHA-256 is
+               printed, to compare two checkouts' outputs.
   profile:     one more convert under torch.profiler: the device's busy
                and idle share of the wall time, and kernels by device time.
   batch:       convert_batch on the main path's converter over four songs
@@ -153,7 +155,12 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                the bf16 bounds of tests/test_f0_methods.py; the two fcpe
                passes (float32 on both) in its fcpe bounds (median relative
                error < 1e-4, > 95% of frames below 1e-2, > 95% of coarse
-               bins equal). The no-f0 renditions, and the v1 32 kHz
+               bins equal). The CREPE decode alone (crepe_f0_decode_device)
+               on a salience whose peak walks (moving_peak_salience, 2,000
+               frames, 1,950 valid), the Viterbi kernel on the card against
+               its twin on the CPU: every path bin and every coarse pitch
+               bin equal, and the path moves on at least a quarter of the
+               frames. The no-f0 renditions, and the v1 32 kHz
                renditions on one F0, stay below 0.5 dB.
   discriminators: multi_period_discriminator v2 (models/discriminators.py,
                plain convs, no kernel) at full width on 2 x 1 x 48,000
@@ -170,15 +177,29 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                HuBERT tensor-parallel) with convert, convert_batch of the
                batch songs and the no-f0 model's convert, held to
                SPLIT_BOUND and NOF0_SPLIT_BOUND against the unsharded
-               converter; 2x1 (HuBERT whole) with convert, byte for byte
-               the unsharded output, and convert_batch, held to
-               SPLIT_BOUND; 1x1, byte for byte the main path's output. (b) Where the machine shows two cards or more, the
+               converter; 2x1 (HuBERT whole) with convert and
+               convert_batch, each song byte for byte the unsharded
+               output; 1x1, byte for byte the main path's output. (b) Where the machine shows two cards or more, the
                same runs on make_mesh() over the distinct cards; else a
                "distinct_cards": false line. Each run: wall, kernel ms
                under the profiler, launches (the synthesizer's kernels
                n_data times main's per batch, the U-Net chain 112 a song),
                int16 differences and mel distortion against the unsharded
                converter's output (< 0.5 dB), cuda_build's counts.
+  hosts:       last: batch covers split over two processes (the
+               counterpart of the JAX package's tools/dcn_dryrun.py;
+               parallel/hosts.py), python3 chip_smoke.py --hosts-child
+               RANK PORT DIR, a gloo process group on 127.0.0.1. Each rank
+               loads the checkpoint phase's files with build_converter
+               (bf16, bench's tiers) on a local 2x1 mesh over cuda:0, runs
+               host_sum (each rank's (2, 8) rows of rank + 1: exactly 6.0
+               in every column) and converts its share of the batch
+               phase's songs (song i on rank i % 2) with
+               convert_batch_across_hosts; rank 0 gathers. Every gathered
+               song must equal the batch phase's one-process output byte
+               for byte. Per rank: wall, songs, kernel launches, the
+               reduction's result; the backend, world size and whether the
+               ranks shared one card.
 Then a "total" line with the script's seconds, the {"kernels": [...]}
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
@@ -186,6 +207,7 @@ line, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -201,6 +223,7 @@ SONG_SECONDS = 60.0
 BENCH_OPTS = dict(index_rate=0.5, protect=0.33, volume_envelope=0.25)
 BENCH_TIERS = dict(x_pad=1, x_query=6, x_center=30, x_max=32, chunk_batch=2,
                    bucket_step_s=4)
+BATCH_SONGS_S = (60, 41, 23, 9)  # the batch phase's songs, cut from the song
 
 
 T_START = time.perf_counter()
@@ -468,6 +491,53 @@ def structured_log_obs(t: int, n: int, seed: int = 0):
     probs[n:] = rng.random((t - n, 360)).astype(np.float32)
     obs = probs / np.maximum(probs.sum(1, keepdims=True), 1e-20)
     return torch.from_numpy(np.log(obs + 1e-20).astype(np.float32))
+
+
+def moving_peak_salience(t: int, seed: int = 0):
+    """(t, 360) CREPE salience in [0, 1]: a bump 3 bins wide whose centre
+    walks -3..3 bins a frame over bins 60-280 (50-1100 Hz), on low noise:
+    a track whose Viterbi path moves, unlike a random-weight CREPE's."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    centre = np.clip(170 + np.cumsum(rng.integers(-3, 4, t)), 60, 280)
+    bins = np.arange(360)[None, :]
+    sal = np.exp(-0.5 * ((bins - centre[:, None]) / 3.0) ** 2)
+    sal += 0.01 * rng.random((t, 360))
+    return torch.from_numpy(np.clip(sal, 0.0, 1.0).astype(np.float32))
+
+
+def crepe_decode_card_and_cpu(t: int = 2000, n: int = 1950) -> dict:
+    """models/crepe.py:crepe_f0_decode_device on moving_peak_salience(t), its
+    first n rows valid, on the card (the Viterbi kernel) and on the CPU (its
+    plain twin): the Viterbi paths' bins and the coarse pitch bins of the
+    two F0 tracks, compared over the n rows."""
+    import torch
+
+    from polgen_rvc_tpu_torch.models import crepe as crepe_mod
+    from polgen_rvc_tpu_torch.ops.f0_utils import coarse_f0
+
+    sal = moving_peak_salience(t)
+    paths, real = {}, crepe_mod.viterbi_path
+
+    def keep(log_obs, n_valid):
+        path = real(log_obs, n_valid)
+        paths[log_obs.device.type] = path.cpu()
+        return path
+
+    crepe_mod.viterbi_path = keep
+    try:
+        f0 = {dev: crepe_mod.crepe_f0_decode_device(sal.to(dev), n).cpu()
+              for dev in ("cuda", "cpu")}
+    finally:
+        crepe_mod.viterbi_path = real
+    coarse = {dev: coarse_f0(f) for dev, f in f0.items()}
+    moves = int((paths["cpu"][1:n] != paths["cpu"][:n - 1]).sum())
+    return {"frames": t, "valid": n, "path_moves": moves,
+            "path_bins_differing": int((paths["cuda"][:n] != paths["cpu"][:n]).sum()),
+            "coarse_differing": int((coarse["cuda"][:n] != coarse["cpu"][:n]).sum()),
+            "f0_max_rel": float(((f0["cuda"][:n] - f0["cpu"][:n]).abs()
+                                 / f0["cpu"][:n].abs().clamp(min=1.0)).max())}
 
 
 def check_kernels(calls: dict) -> dict:
@@ -824,6 +894,19 @@ def model_bytes(vc) -> int:
     return sum(seen.values())
 
 
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, which counts its launches, by kernel name."""
+    from polgen_rvc_tpu_torch.ops import (
+        band_attention, conv_transpose, resblock_group, unet_chain, viterbi,
+    )
+
+    return {"resblock_group": resblock_group.fused_resblock_group,
+            "conv_transpose": conv_transpose.conv_transpose1d,
+            "band_attention": band_attention.band_attention,
+            "unet_chain": unet_chain.convblock_chain,
+            "viterbi": viterbi.viterbi_path}
+
+
 def zero_launches(wrappers: dict):
     for fn in wrappers.values():
         fn.launches = 0
@@ -966,7 +1049,7 @@ def chunk_spans(vc, plan) -> list:
     return spans
 
 
-def batch_phase(vc, song, opts, wrappers, smi, seconds=(60, 41, 23, 9)) -> dict:
+def batch_phase(vc, song, opts, wrappers, smi, seconds=BATCH_SONGS_S) -> list:
     """convert_batch over four songs cut from the bench song (60, 41, 23 and
     9 s) on the main path's converter, against each song's serial convert.
 
@@ -978,7 +1061,8 @@ def batch_phase(vc, song, opts, wrappers, smi, seconds=(60, 41, 23, 9)) -> dict:
     ride the same bucket in both routes must come out byte for byte; any
     other song's difference is printed, per chunk too, and must stay below
     0.5 dB of mel distortion (the whole-song RMS gain spreads a chunk's
-    difference into its neighbours' samples)."""
+    difference into its neighbours' samples). Returns the packed call's
+    int16 songs."""
     import torch
 
     from polgen_rvc_tpu_torch.pipeline.batch_cover import pack_work
@@ -1087,7 +1171,7 @@ def batch_phase(vc, song, opts, wrappers, smi, seconds=(60, 41, 23, 9)) -> dict:
                                  f"its serial convert: {entry}")
         if entry["peak_int16"] < 1000:
             raise AssertionError(f"batch: the {entry['seconds']} s song is silent")
-    return result
+    return [out for out, _ in packed]
 
 
 def compare(out, ref, sr: int) -> dict:
@@ -1183,24 +1267,24 @@ def mesh_run(label, mvc, song, opts, refs, wrappers, smi, n_batches, bounds,
     return result
 
 
-# How far a sound mesh's output may lie from the unsharded converter's on
-# one card (largest int16 count, mel distortion in dB), each bound between
-# what sound meshes and wrong ones read on an NVIDIA H100 80GB HBM3 at
-# 700 W (mesh_stages.py; PERF.md section 6): sound 2x2 and 2x1 at
-# most 226 counts, 0.085 dB; biases added in each model shard 850 counts,
-# 0.23 dB; noise from another seed 9,395 counts, 2.0 dB. A split HuBERT
-# rounds each shard's partial product to bf16 before the sum, and a data
-# shard of one row differs from the two-row batch where cuDNN picks its
-# algorithm by row count (enc_p's FFN conv2 at 1,998 frames; not at the 60
-# s song's 3,998, where 2x1 gives the unsharded bytes). The no-f0 model's
-# output moves more with its content features: sound 638 counts, 0.111 dB;
-# biases per shard 2,879 counts, 0.51 dB.
+# How far a mesh with a split HuBERT (2x2) may lie from the unsharded
+# converter's output on one card (largest int16 count, mel distortion in
+# dB), each bound between what sound meshes and wrong ones read on an
+# NVIDIA H100 80GB HBM3 at 700 W (mesh_stages.py; PERF.md section 6):
+# sound 2x2 at most 226 counts, 0.085 dB; biases added in each model shard
+# 850 counts, 0.23 dB; noise from another seed 9,395 counts, 2.0 dB. A
+# split HuBERT rounds each shard's partial product to bf16 before the sum.
+# The no-f0 model's output moves more with its content features: sound 638
+# counts, 0.111 dB; biases per shard 2,879 counts, 0.51 dB. A data shard
+# of fewer rows (2x1) gives the unsharded bytes: the calls whose algorithm
+# the card picks by row count run at the engine's chunk_batch rows
+# (ops/conv.py:at_rows), so 2x1 is held byte for byte.
 SPLIT_BOUND = {"max_abs_diff": 400, "mel_distortion_db": 0.15}
 NOF0_SPLIT_BOUND = {"max_abs_diff": 1200, "mel_distortion_db": 0.25}
 
 
 def mesh_phase(eng, song, opts, main_out, wrappers, smi,
-               seconds=(60, 41, 23, 9)) -> dict:
+               seconds=BATCH_SONGS_S) -> dict:
     """The counterpart of the JAX package's dryrun_multichip at full width,
     on the main path's song, engine and options, over one making of the
     main path's weights (seed 0) and the no-f0 model's. (a) Meshes over
@@ -1208,7 +1292,8 @@ def mesh_phase(eng, song, opts, main_out, wrappers, smi,
     2x2 (data 2 x model 2, one row a data shard, HuBERT tensor-parallel)
     with convert, convert_batch of the batch phase's songs and the no-f0
     model's convert; 2x1 (HuBERT whole, one row a shard) with convert and
-    convert_batch; 1x1, byte for byte the main path's output. (b) Where
+    convert_batch, byte for byte the unsharded output; 1x1, byte for byte
+    the main path's output. (b) Where
     the machine shows two cards or more, the same runs on make_mesh() over
     the distinct cards (data = count, or count / 2 x model 2 for an even
     count >= 4); else "distinct_cards": false and no run. Every reference
@@ -1249,7 +1334,8 @@ def mesh_phase(eng, song, opts, main_out, wrappers, smi,
     one = ["cuda:0"]
     for label, shape, bounds, kw in (
             ("2x2_one_card", (2, 2), split, {"songs": songs, "nof0": True}),
-            ("2x1_one_card", (2, 1), {**split, "convert": "identical"}, {"songs": songs}),
+            ("2x1_one_card", (2, 1), {"convert": "identical", "batch": "identical"},
+             {"songs": songs}),
             ("1x1", (1, 1), {"convert": "identical"}, {})):
         mesh = make_mesh(*shape, devices=one * (shape[0] * shape[1]))
         nof0 = build(eng, mesh, use_f0=False) if kw.pop("nof0", False) else None
@@ -1600,6 +1686,14 @@ def cover_phase(root, wrappers, smi) -> dict:
     return result
 
 
+def checkpoint_files(root: str) -> list:
+    """The checkpoint phase's model files under root, in build_converter's
+    order: the RVC .pth, HuBERT, RMVPE, the index."""
+    return [os.path.join(root, *parts) for parts in (
+        ("models", "voice", "voice.pth"), ("assets", "embedders", "hubert_base.pt"),
+        ("assets", "predictors", "rmvpe.pt"), ("models", "voice", "voice.index"))]
+
+
 def prewarm_child(mode: str, root: str) -> int:
     """python3 chip_smoke.py --prewarm-child cold|warm ROOT: a fresh process
     (cold CUDA context, library handles, ctypes libraries and allocator)
@@ -1622,10 +1716,7 @@ def prewarm_child(mode: str, root: str) -> int:
         return os.path.join(root, *parts)
 
     t0 = time.perf_counter()
-    vc = build_converter(join("models", "voice", "voice.pth"),
-                         join("assets", "embedders", "hubert_base.pt"),
-                         join("assets", "predictors", "rmvpe.pt"),
-                         join("models", "voice", "voice.index"),
+    vc = build_converter(*checkpoint_files(root),
                          engine=EngineConfig(**BENCH_TIERS, compute_dtype="bfloat16"),
                          device="cuda")
     torch.cuda.synchronize()
@@ -1685,6 +1776,120 @@ def prewarm_phase(root, main_out, smi) -> dict:
                              f"{extra}")
     if not all(equal.values()):
         raise AssertionError(f"prewarm: outputs differ from the main path's: {equal}")
+    return result
+
+
+HOSTS = 2  # processes of the hosts phase
+HOSTS_TIMEOUT_S = 600
+
+
+def hosts_child(rank: str, port: str, root: str) -> int:
+    """python3 chip_smoke.py --hosts-child RANK PORT ROOT: rank RANK of HOSTS
+    gloo processes (parallel/hosts.py, rendezvous on 127.0.0.1:PORT). It
+    loads ROOT's model files (the checkpoint phase's) with build_converter,
+    bf16 at bench's tiers, on a local 2x1 mesh over cuda:0; runs host_sum
+    over each rank's (2, 8) rows of rank + 1; then converts its share of the
+    batch phase's songs (song i on rank i % HOSTS) with
+    convert_batch_across_hosts, the launch counts set to 0 before and read
+    after. Rank 0 writes the gathered songs to ROOT/hosts_song<i>.npy. Prints
+    one JSON line: the wall, its songs, its launches, host_sum's result,
+    its mesh and its card's UUID."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from polgen_rvc_tpu_torch.parallel import (
+        convert_batch_across_hosts, host_share, host_sum, init_hosts, make_mesh,
+    )
+    from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions, EngineConfig
+    from polgen_rvc_tpu_torch.pipeline.factory import build_converter
+
+    rank, port = int(rank), int(port)
+    wrappers = kernel_wrappers()
+    mesh = make_mesh(2, 1, devices=["cuda:0"] * 2)
+    eng = EngineConfig(**BENCH_TIERS, compute_dtype="bfloat16")
+    vc = build_converter(*checkpoint_files(root), engine=eng, mesh=mesh)
+    song = bench_song(SONG_SECONDS)
+    songs = [song[:s * eng.sample_rate] for s in BATCH_SONGS_S]
+    init_hosts(port, HOSTS, rank, timeout_s=HOSTS_TIMEOUT_S / 2)
+    try:
+        summed = host_sum(torch.full((2, 8), float(rank + 1)))
+        zero_launches(wrappers)
+        t0 = time.perf_counter()
+        outs = convert_batch_across_hosts(vc, songs, ConversionOptions(**BENCH_OPTS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(wrappers)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        for i, (audio, _) in enumerate(outs):
+            np.save(os.path.join(root, f"hosts_song{i}.npy"), audio)
+    emit({"phase": "hosts_child", "rank": rank, "world_size": HOSTS,
+          "backend": "gloo", "songs": host_share(len(songs), rank, HOSTS),
+          "songs_s": [BATCH_SONGS_S[i] for i in host_share(len(songs), rank, HOSTS)],
+          "wall_s": wall, "launches": launches, "host_sum": summed.tolist(),
+          "mesh": [str(d) for d in mesh.devices.flat],
+          "card_uuid": str(torch.cuda.get_device_properties(0).uuid)})
+    return 0
+
+
+def hosts_phase(root, batch_out, smi) -> dict:
+    """Batch covers split over HOSTS processes (see hosts_child): every
+    gathered song must equal the batch phase's one-process convert_batch
+    output byte for byte, and host_sum give 2 x (1 + 2) = 6 in every column
+    on every rank. Each rank's launches: the U-Net chain 112 a song of its
+    share; the synthesizer's kernels in whole packed batches over 2 data
+    shards (resblock group 72, conv-transpose 8, band attention 12 a
+    batch), Viterbi none."""
+    import socket
+
+    with socket.create_server(("127.0.0.1", 0)) as sock:
+        port = sock.getsockname()[1]
+    script = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, script, "--hosts-child", str(rank),
+                               str(port), root], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for rank in range(HOSTS)]
+    deadline = time.monotonic() + HOSTS_TIMEOUT_S
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, (out, err)) in enumerate(zip(procs, outputs)):
+        if p.returncode != 0:
+            raise AssertionError(f"hosts: rank {rank} failed ({p.returncode}):\n{out}\n{err}")
+    ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in outputs]
+    songs = [compare(np.load(os.path.join(root, f"hosts_song{i}.npy")), ref, 48000)
+             for i, ref in enumerate(batch_out)]
+    uuids = {r["card_uuid"] for r in ranks}
+    result = {"phase": "hosts", "backend": "gloo", "world_size": HOSTS,
+              "ranks_share_one_card": len(uuids) == 1,
+              "ranks": [{k: r[k] for k in ("rank", "songs", "songs_s", "wall_s", "launches",
+                                          "host_sum", "mesh")} for r in ranks],
+              "songs": songs, "bound": "identical", "card": smi}
+    emit(result)
+    for r in ranks:
+        if r["host_sum"] != [2.0 * sum(range(1, HOSTS + 1))] * 8:
+            raise AssertionError(f"hosts: rank {r['rank']}'s host_sum {r['host_sum']}")
+        got = r["launches"]
+        if (got["unet_chain"] != 112 * len(r["songs"]) or got["viterbi"]
+                or got["resblock_group"] % 72 or got["conv_transpose"] % 8
+                or got["band_attention"] % 12 or not got["resblock_group"]
+                or got["resblock_group"] // 72 != got["conv_transpose"] // 8
+                or got["resblock_group"] // 72 != got["band_attention"] // 12):
+            raise AssertionError(f"hosts: rank {r['rank']}'s launches {got}")
+    for i, entry in enumerate(songs):
+        if not entry["identical"]:
+            raise AssertionError(f"hosts: song {i} differs from the one-process "
+                                 f"convert_batch: {entry}")
     return result
 
 
@@ -1881,9 +2086,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from polgen_rvc_tpu_torch import native
-    from polgen_rvc_tpu_torch.ops import (
-        band_attention, conv_transpose, cuda_build, resblock_group, unet_chain, viterbi,
-    )
+    from polgen_rvc_tpu_torch.ops import cuda_build
     from polgen_rvc_tpu_torch.ops.filters import highpass_pad_quant
     from polgen_rvc_tpu_torch.pipeline.chunking import plan_chunks
     from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions, EngineConfig
@@ -1909,11 +2112,7 @@ def main() -> int:
           "build_s": build_s, "ptxas": ptxas, "native_build_s": native_s,
           "native": {k: os.path.relpath(v) for k, v in native_libs.items()}})
 
-    wrappers = {"resblock_group": resblock_group.fused_resblock_group,
-                "conv_transpose": conv_transpose.conv_transpose1d,
-                "band_attention": band_attention.band_attention,
-                "unet_chain": unet_chain.convblock_chain,
-                "viterbi": viterbi.viterbi_path}
+    wrappers = kernel_wrappers()
     synth_kernels = ("resblock_group", "conv_transpose", "band_attention")
 
     # ---- main path (rmvpe+) ------------------------------------------------
@@ -1939,7 +2138,8 @@ def main() -> int:
     main = {"phase": "main", "seconds_audio": SONG_SECONDS, "chunks": len(plan.chunks),
             "setup_s": setup_s, **{k: v for k, v in run.items() if k != "out"},
             "out_samples": int(run["out"].shape[0]), "expected_samples": expected,
-            "peak_int16": int(np.abs(run["out"].astype(np.int32)).max()), "card": smi}
+            "peak_int16": int(np.abs(run["out"].astype(np.int32)).max()),
+            "out_sha256": hashlib.sha256(run["out"].tobytes()).hexdigest(), "card": smi}
     emit(main)
     emit({"phase": "profile", **{k: v for k, v in profile.items() if k != "kernels"},
           "top": profile["kernels"][:8]})
@@ -1952,16 +2152,18 @@ def main() -> int:
         raise AssertionError("main path: two converts of the song differ")
 
     # ---- batch covers, model files, the CLI ---------------------------------
-    batch_phase(vc, song, opts, wrappers, smi)
+    batch_out = batch_phase(vc, song, opts, wrappers, smi)
     main_out = run["out"]
     f0_file_phase(vc, song, opts, main_out, wrappers, smi)
     del vc, run
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        checkpoint_phase(root, eng, song, opts, main_out, wrappers, smi)
-        cli_phase(root, wrappers, smi)
-        cover = cover_phase(root, wrappers, smi)
-        serve_phase(root, cover, wrappers, smi)
-        prewarm_phase(root, main_out, smi)
+    # the model files stay until the hosts phase, the last
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    root = workdir.name
+    checkpoint_phase(root, eng, song, opts, main_out, wrappers, smi)
+    cli_phase(root, wrappers, smi)
+    cover = cover_phase(root, wrappers, smi)
+    serve_phase(root, cover, wrappers, smi)
+    prewarm_phase(root, main_out, smi)
 
     # ---- mangio-crepe path -------------------------------------------------
     t0 = time.perf_counter()
@@ -2136,6 +2338,9 @@ def main() -> int:
                  "voiced_share_cpu": float(np.mean(pf_cpu > 0)),
                  "gates": {"median_rel": 3e-3, "share_rel_below_2e-2": 0.95,
                            "coarse_max_abs_diff": 3, "share_coarse_within_1": 0.95}}
+    # the decode alone on a moving peak: the Viterbi kernel against its
+    # twin where the path moves (the random-weight CREPE decodes one bin)
+    crepe_moving = crepe_decode_card_and_cpu()
     # fcpe: float32 on both (TF32 off on the card); the bounds of
     # tests/test_f0_methods.py for the JAX package's own two fcpe paths
     ff0 = {dev: [a.cpu().numpy() for a in vc.compute_f0(bufs[dev], fopts, padded_len)]
@@ -2187,7 +2392,8 @@ def main() -> int:
                                               int(renditions["cpu"].shape[0])],
           "f0_coarse_equal_frac": coarse_equal, "f0_gate": 0.9,
           "mel_distortion_db_same_f0": dist, "gate_db": 0.5,
-          "crepe_f0": crepe_ref, "fcpe_f0": fcpe_ref,
+          "crepe_f0": crepe_ref, "crepe_decode_moving_peak": crepe_moving,
+          "fcpe_f0": fcpe_ref,
           "nof0_mel_distortion_db": nof0_dist,
           "v1_32k_mel_distortion_db_same_f0": v1_dist,
           "script_s_so_far": time.perf_counter() - t_start})
@@ -2199,6 +2405,9 @@ def main() -> int:
             and crepe_ref["coarse_max_abs_diff"] <= 3
             and crepe_ref["share_coarse_within_1"] > 0.95):
         raise AssertionError(f"card vs CPU mangio-crepe F0: {crepe_ref}")
+    if (crepe_moving["path_bins_differing"] or crepe_moving["coarse_differing"]
+            or crepe_moving["path_moves"] < crepe_moving["valid"] // 4):
+        raise AssertionError(f"card vs CPU crepe decode on a moving peak: {crepe_moving}")
     if not (fcpe_ref["median_rel"] < 1e-4 and fcpe_ref["share_rel_below_1e-2"] > 0.95
             and fcpe_ref["share_coarse_equal"] > 0.95):
         raise AssertionError(f"card vs CPU fcpe F0: {fcpe_ref}")
@@ -2209,6 +2418,8 @@ def main() -> int:
     # last, so that its converters and allocations cannot change what a
     # timed single-card path measures (a CREPE conv's cuDNN algorithm)
     mesh_phase(eng, song, opts, main_out, wrappers, smi)
+    hosts_phase(root, batch_out, smi)
+    workdir.cleanup()
 
     sources = {
         "resblock_group": "polgen_rvc_tpu/ops/pallas_resblock.py:176",
@@ -2261,4 +2472,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--prewarm-child"]:
         sys.exit(prewarm_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--hosts-child"]:
+        sys.exit(hosts_child(*sys.argv[2:5]))
     sys.exit(main())

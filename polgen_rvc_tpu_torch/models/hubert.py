@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv import conv1d
+from ..ops.conv import at_rows, conv1d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,9 +47,14 @@ def _layer_norm(x, p, eps=1e-5):
                         p["beta"].to(x.dtype), eps)
 
 
-def _group_norm(x, gamma, beta, groups: int, eps=1e-5, time_valid=None):
+def _group_sums(xg):
+    return xg.sum(dim=(2, 3), keepdim=True)
+
+
+def _group_norm(x, gamma, beta, groups: int, eps=1e-5, time_valid=None, rows=None):
     """GroupNorm over (B, C, T); time_valid (B,) restricts the statistics to
-    each row's first time_valid positions."""
+    each row's first time_valid positions, whose sums run at `rows` rows
+    (ops/conv.py:at_rows)."""
     b, c, t = x.shape
     xg = x.reshape(b, groups, c // groups, t)
     if time_valid is None:
@@ -59,15 +64,15 @@ def _group_norm(x, gamma, beta, groups: int, eps=1e-5, time_valid=None):
         tmask = (torch.arange(t, device=x.device)[None, :]
                  < time_valid[:, None]).to(x.dtype)[:, None, None, :]
         n = torch.clamp(time_valid.to(x.dtype), min=1.0)[:, None, None, None] * (c // groups)
-        mean = (xg * tmask).sum(dim=(2, 3), keepdim=True) / n
-        var = ((xg - mean).square() * tmask).sum(dim=(2, 3), keepdim=True) / n
+        mean = at_rows(_group_sums, rows, xg * tmask) / n
+        var = at_rows(_group_sums, rows, (xg - mean).square() * tmask) / n
     xg = (xg - mean) * torch.rsqrt(var + eps)
     x = xg.reshape(b, c, t)
     return x * gamma.to(x.dtype)[None, :, None] + beta.to(x.dtype)[None, :, None]
 
 
-def feature_extractor(params, cfg: HubertConfig, wav, valid_samples=None):
-    """(B, T_samples) -> (B, T_frames, 512)."""
+def feature_extractor(params, cfg: HubertConfig, wav, valid_samples=None, rows=None):
+    """(B, T_samples) -> (B, T_frames, 512); rows: as hubert_extract_tp."""
     x = wav[:, None, :]
     for i, (dim, k, s) in enumerate(cfg.conv_layers):
         x = conv1d(x, params["convs"][i]["w"], None, stride=s)
@@ -77,7 +82,8 @@ def feature_extractor(params, cfg: HubertConfig, wav, valid_samples=None):
             if valid_samples is not None:
                 tv = torch.clamp(torch.div(valid_samples - k, s,
                                            rounding_mode="floor") + 1, min=1)
-            x = _group_norm(x, gn["gamma"], gn["beta"], groups=dim, time_valid=tv)
+            x = _group_norm(x, gn["gamma"], gn["beta"], groups=dim, time_valid=tv,
+                            rows=rows)
         x = F.gelu(x)
     return x.transpose(1, 2)
 
@@ -86,9 +92,10 @@ def _linear(x, p):
     return x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
 
 
-def _attend(x, p, n_heads: int, mask=None):
+def _attend(x, p, n_heads: int, mask=None, rows=None):
     """The heads of attention on (B, T, C) before the output projection:
-    (B, T, width of p's q/k/v); mask (B, T) True = padded key."""
+    (B, T, width of p's q/k/v); mask (B, T) True = padded key; the
+    probabilities' product with v runs at `rows` rows (at_rows)."""
     b, t, _ = x.shape
     q, k, v = _linear(x, p["q"]), _linear(x, p["k"]), _linear(x, p["v"])
     width = q.shape[-1]
@@ -101,17 +108,17 @@ def _attend(x, p, n_heads: int, mask=None):
     scores = (q / math.sqrt(dk)) @ k.transpose(-1, -2)
     if mask is not None:
         scores.masked_fill_(mask[:, None, None, :], -1e4)
-    out = torch.softmax(scores, dim=-1) @ v
+    out = at_rows(torch.matmul, rows, torch.softmax(scores, dim=-1), v)
     return out.transpose(1, 2).reshape(b, t, width)
 
 
 def _encoder_input(params, cfg: HubertConfig, wav, padding_mask, compute_dtype,
-                   valid_samples):
+                   valid_samples, rows=None):
     """Conv features -> LayerNorm -> projection -> padded frames zeroed ->
     + GELU(positional conv) -> the encoder's LayerNorm: (B, T_frames, C)."""
     wav = wav.to(compute_dtype)
     feats = feature_extractor(params["feature_extractor"], cfg, wav,
-                              valid_samples=valid_samples)
+                              valid_samples=valid_samples, rows=rows)
     feats = _layer_norm(feats, params["layer_norm"])
     x = _linear(feats, params["post_extract_proj"])
     if padding_mask is not None:
@@ -163,11 +170,13 @@ def _reduce(partials, devices, biases):
 def hubert_extract_tp(shards, devices, cfg: HubertConfig, wav, *,
                       output_layer: Optional[int] = None, final_proj: bool = False,
                       padding_mask=None, compute_dtype=torch.float32,
-                      valid_samples=None):
+                      valid_samples=None, rows=None):
     """hubert_extract with each layer's attention and FFN split over model
     shards: shards[m] is model place m's tree (parallel.shard_hubert_params;
     one shard: the whole tree) on devices[m]; wav, padding_mask and
-    valid_samples lie on devices[0], and so does the result.
+    valid_samples lie on devices[0], and so does the result. rows: the row
+    count of the engine's batch, at which the calls whose algorithm the
+    card picks by row count run (ops/conv.py:at_rows), or None.
 
     Shard m computes its n_heads / n_model heads and its ffn_dim / n_model
     fc1 columns, and multiplies by its row block of o or fc2 without the
@@ -187,13 +196,13 @@ def hubert_extract_tp(shards, devices, cfg: HubertConfig, wav, *,
 
     mask = {dev: on(padding_mask, dev) for dev in first}
     x = {dev: _encoder_input(p, cfg, on(wav, dev), mask[dev], compute_dtype,
-                             on(valid_samples, dev))
+                             on(valid_samples, dev), rows)
          for dev, p in first.items()}
     heads = cfg.n_heads // n_model
     for li in range(output_layer):
         layers = [p["encoder"]["layers"][li] for p in shards]
         rep = {dev: p["encoder"]["layers"][li] for dev, p in first.items()}
-        y = _reduce([_attend(x[dev], lp["attn"], heads, mask=mask[dev])
+        y = _reduce([_attend(x[dev], lp["attn"], heads, mask=mask[dev], rows=rows)
                      @ lp["attn"]["o"]["w"].to(x[dev].dtype)
                      for dev, lp in zip(devices, layers)], devices,
                     {dev: lp["attn"]["o"]["b"] for dev, lp in rep.items()})

@@ -91,30 +91,33 @@ def relative_attention(x, params, *, n_heads: int, lengths,
     return conv1d(out, params["o"]["w"], params["o"]["b"])
 
 
-def ffn(x, x_mask, params, *, kernel_size: int):
-    """Conv feed-forward with same-padding and relu."""
+def ffn(x, x_mask, params, *, kernel_size: int, rows=None):
+    """Conv feed-forward with same-padding and relu; conv2 runs at `rows`
+    rows (ops/conv.py:at_rows)."""
     pad = ((kernel_size - 1) // 2, kernel_size // 2)
     y = conv1d(F.pad(x * x_mask, pad), params["conv1"]["w"], params["conv1"]["b"])
     y = torch.relu(y)
-    y = conv1d(F.pad(y * x_mask, pad), params["conv2"]["w"], params["conv2"]["b"])
+    y = conv1d(F.pad(y * x_mask, pad), params["conv2"]["w"], params["conv2"]["b"],
+               rows=rows)
     return y * x_mask
 
 
-def transformer_encoder(x, x_mask, layers, *, n_heads: int, kernel_size: int):
+def transformer_encoder(x, x_mask, layers, *, n_heads: int, kernel_size: int,
+                        rows=None):
     """Rel-attention + FFN blocks with post-LN residuals."""
     lengths = mask_lengths(x_mask)
     x = x * x_mask
     for lp in layers:
         y = relative_attention(x, lp["attn"], n_heads=n_heads, lengths=lengths)
         x = layer_norm_channels(x + y, lp["norm1"]["gamma"], lp["norm1"]["beta"])
-        y = ffn(x, x_mask, lp["ffn"], kernel_size=kernel_size)
+        y = ffn(x, x_mask, lp["ffn"], kernel_size=kernel_size, rows=rows)
         x = layer_norm_channels(x + y, lp["norm2"]["gamma"], lp["norm2"]["beta"])
     return x * x_mask
 
 
-def text_encoder(params, cfg: SynthesizerConfig, phone, pitch, x_mask):
+def text_encoder(params, cfg: SynthesizerConfig, phone, pitch, x_mask, rows=None):
     """enc_p: (B, T, input_dim) features (+ coarse pitch embedding)
-    -> (m_p, logs_p), each (B, inter, T)."""
+    -> (m_p, logs_p), each (B, inter, T); rows: as synthesizer_infer."""
     w = params["emb_phone"]
     x = phone @ w["w"].to(phone.dtype) + w["b"].to(phone.dtype)
     if pitch is not None:
@@ -122,19 +125,20 @@ def text_encoder(params, cfg: SynthesizerConfig, phone, pitch, x_mask):
     x = x * math.sqrt(cfg.hidden_channels)
     x = F.leaky_relu(x, 0.1).transpose(1, 2)
     x = transformer_encoder(x, x_mask, params["encoder"], n_heads=cfg.n_heads,
-                            kernel_size=cfg.kernel_size)
+                            kernel_size=cfg.kernel_size, rows=rows)
     stats = conv1d(x, params["proj"]["w"], params["proj"]["b"]) * x_mask
     return torch.chunk(stats, 2, dim=1)
 
 
 def wavenet(x, x_mask, params, g, *, hidden_channels: int, n_layers: int,
-            kernel_size: int):
-    """Gated dilation-1 conv stack with speaker conditioning."""
+            kernel_size: int, rows=None):
+    """Gated dilation-1 conv stack with speaker conditioning; the in convs
+    run at `rows` rows (ops/conv.py:at_rows)."""
     output = torch.zeros_like(x)
     g_all = conv1d(g, params["cond"]["w"], params["cond"]["b"]) if g is not None else None
     for i in range(n_layers):
         x_in = conv1d(x, params["in"][i]["w"], params["in"][i]["b"],
-                      padding=(kernel_size - 1) // 2)
+                      padding=(kernel_size - 1) // 2, rows=rows)
         if g_all is not None:
             x_in = x_in + g_all[:, 2 * hidden_channels * i: 2 * hidden_channels * (i + 1)]
         acts = torch.tanh(x_in[:, :hidden_channels]) * torch.sigmoid(x_in[:, hidden_channels:])
@@ -147,28 +151,30 @@ def wavenet(x, x_mask, params, g, *, hidden_channels: int, n_layers: int,
     return output * x_mask
 
 
-def _coupling_reverse(x, x_mask, params, g, cfg: SynthesizerConfig):
+def _coupling_reverse(x, x_mask, params, g, cfg: SynthesizerConfig, rows=None):
     half = cfg.inter_channels // 2
     x0, x1 = x[:, :half], x[:, half:]
     h = conv1d(x0, params["pre"]["w"], params["pre"]["b"]) * x_mask
     h = wavenet(h, x_mask, params["enc"], g, hidden_channels=cfg.hidden_channels,
-                n_layers=3, kernel_size=5)
+                n_layers=3, kernel_size=5, rows=rows)
     m = conv1d(h, params["post"]["w"], params["post"]["b"]) * x_mask
     return torch.cat([x0, (x1 - m) * x_mask], dim=1)
 
 
-def flow_reverse(params, cfg: SynthesizerConfig, z_p, x_mask, g):
-    """ResidualCouplingBlock reverse: 4x (coupling, flip) undone in reverse."""
+def flow_reverse(params, cfg: SynthesizerConfig, z_p, x_mask, g, rows=None):
+    """ResidualCouplingBlock reverse: 4x (coupling, flip) undone in reverse;
+    rows: as synthesizer_infer."""
     x = z_p
     for layer_params in reversed(params):
-        x = _coupling_reverse(torch.flip(x, dims=(1,)), x_mask, layer_params, g, cfg)
+        x = _coupling_reverse(torch.flip(x, dims=(1,)), x_mask, layer_params, g, cfg,
+                              rows)
     return x
 
 
 def synthesizer_infer(params: dict, cfg: SynthesizerConfig, phone, x_mask,
                       pitch=None, nsff0=None, sid=None, *, eps=None,
                       nsf_noise=None, noise_scale: float = 0.66666,
-                      compute_dtype=torch.float32, dec_frames=None):
+                      compute_dtype=torch.float32, dec_frames=None, rows=None):
     """Full generator inference.
 
     phone: (B, T, input_dim) content features (already 2x-upsampled);
@@ -178,7 +184,9 @@ def synthesizer_infer(params: dict, cfg: SynthesizerConfig, phone, x_mask,
     and nsf_noise: (B, >= T*upp) source noise, each sliced to length (None =
     noise-free; no-f0 models have no source and ignore nsf_noise);
     dec_frames: the fixed frame length of the decoder's conv_pre (>= T;
-    models/nsf.py), or None. Returns (B, T * upp) in compute_dtype.
+    models/nsf.py), or None; rows: the row count of the engine's batch,
+    at which the calls whose algorithm the card picks by row count run
+    (ops/conv.py:at_rows), or None. Returns (B, T * upp) in compute_dtype.
     """
     from .nsf import generator, generator_nsf  # nsf imports SynthesizerConfig from here
 
@@ -187,7 +195,7 @@ def synthesizer_infer(params: dict, cfg: SynthesizerConfig, phone, x_mask,
     if sid is None:
         sid = torch.zeros(phone.shape[0], dtype=torch.long, device=phone.device)
     g = params["emb_g"].to(compute_dtype)[sid][:, :, None]
-    m_p, logs_p = text_encoder(params["enc_p"], cfg, phone, pitch, x_mask)
+    m_p, logs_p = text_encoder(params["enc_p"], cfg, phone, pitch, x_mask, rows)
 
     # the latent stays fp32 whatever the compute dtype (exp(logs) * noise in
     # bf16 costs ~2.4 dB mel distortion in the JAX package's measurements)
@@ -197,7 +205,7 @@ def synthesizer_infer(params: dict, cfg: SynthesizerConfig, phone, x_mask,
     if eps is not None:
         z_p = m32 + torch.exp(logs32) * eps[..., :t].float() * noise_scale
     z_p = z_p * x_mask.float()
-    z = flow_reverse(params["flow"], cfg, z_p.to(compute_dtype), x_mask, g)
+    z = flow_reverse(params["flow"], cfg, z_p.to(compute_dtype), x_mask, g, rows)
     z = z * x_mask
     if not cfg.use_f0:
         return generator(params["dec"], cfg, z, g, frames=dec_frames)

@@ -11,6 +11,16 @@ decoder's upsampling, its resblocks and the U-Net block chains have kernels
 of their own (ops/conv_transpose.py, ops/resblock_group.py,
 ops/unet_chain.py). Weights are cast to the activation dtype, as the JAX
 ops do.
+
+``at_rows`` (and ``conv1d(..., rows=)``) runs a library call at a fixed
+row count. On the card, cuDNN, cuBLAS and PyTorch's reductions pick their
+algorithm, and with it the order of a sum, by the batch's row count, so a
+mesh's data shard of fewer rows than the engine's batch could give a row
+other bytes than the unsharded batch gives it. The calls where that was
+seen (mesh_stages.py --sweep: enc_p's FFN conv2 and the flow's WaveNet
+in convs at 1,198-1,998 frames, HuBERT's attention product at 798, its
+feature extractor's group-norm sums at 4,398-4,798) pass the engine's
+chunk_batch and run at that many rows.
 """
 
 from __future__ import annotations
@@ -28,11 +38,28 @@ def _bias(b, x):
     return None if b is None else b.to(x.dtype)
 
 
+def at_rows(fn, rows, *xs):
+    """fn(*xs), with each x's first axis zero-padded to `rows` when xs lie
+    on the card and hold fewer rows, and the result cut back to their rows.
+    A row then gets the bytes it gets in a batch of `rows` rows, whatever
+    rides beside it: the padded rows' outputs are dropped, and each output
+    row reads only its own input row. rows None, at most xs[0]'s rows, or
+    CPU tensors: fn(*xs) as it is, no copy (the calls were found on the
+    card; on the CPU a shard stays within 1 count of the batch, and the
+    padding would multiply its cost)."""
+    n = xs[0].shape[0]
+    if rows is None or n >= rows or not xs[0].is_cuda:
+        return fn(*xs)
+    return fn(*(torch.cat([x, x.new_zeros((rows - n, *x.shape[1:]))]) for x in xs))[:n]
+
+
 def conv1d(x, w, b=None, *, stride: int = 1, padding: int = 0,
-           dilation: int = 1, groups: int = 1):
-    """x: (B, C, T), w: (O, I/g, K) -> (B, O, T')."""
-    return F.conv1d(x, w.to(x.dtype), _bias(b, x), stride=stride,
-                    padding=padding, dilation=dilation, groups=groups)
+           dilation: int = 1, groups: int = 1, rows=None):
+    """x: (B, C, T), w: (O, I/g, K) -> (B, O, T'); rows: run at that many
+    rows (at_rows)."""
+    return at_rows(lambda x: F.conv1d(x, w.to(x.dtype), _bias(b, x), stride=stride,
+                                      padding=padding, dilation=dilation, groups=groups),
+                   rows, x)
 
 
 def conv2d(x, w, b=None, *, stride=1, padding=0, dilation=1, groups: int = 1):

@@ -364,7 +364,10 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
                     opts: ConversionOptions, use_index: bool, use_protect: bool):
         """One data shard's rows, on its device: HuBERT (tensor-parallel over
         the shard's model devices) -> retrieval -> 2x frame repeat ->
-        protect mix -> synthesizer -> pad trim. (rows, out_len) float32."""
+        protect mix -> synthesizer -> pad trim. (rows, out_len) float32.
+        The calls whose algorithm the card picks by row count run at
+        chunk_batch rows (ops/conv.py:at_rows), so a shard's rows get the
+        unsharded batch's bytes."""
         eng, dev, cdt = self.engine, shard.device, self.compute_dtype
         v1 = self.version == "v1"
         n_layers = self.hubert_cfg.n_layers
@@ -374,7 +377,7 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
             shard.hubert_params, shard.hubert_devices, self.hubert_cfg, inp["wav"],
             output_layer=9 if (v1 and n_layers >= 9) else n_layers,
             final_proj=v1, compute_dtype=cdt, padding_mask=hub_pad,
-            valid_samples=inp["samp_lens"],
+            valid_samples=inp["samp_lens"], rows=eng.chunk_batch,
         )
         feats0 = feats
         if use_index:
@@ -405,6 +408,7 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
             shard.synth_params, self.synth_cfg, feats,
             frame_mask[:, None, :], pitch, pitchf, sid, eps=eps, nsf_noise=nsf,
             noise_scale=eng.noise_scale, compute_dtype=cdt, dec_frames=nf,
+            rows=eng.chunk_batch,
         ).float()
 
         t_pad_tgt = self.tgt_sr * eng.x_pad

@@ -816,3 +816,134 @@ def test_convert_on_two_cards(dev, monkeypatch):
         assert seen[name] == cards, (name, seen[name])
     assert got.shape == want.shape
     assert mel_distortion_db(got, want, sr) < 0.5
+
+
+def _bench_like_song(seconds, sr=16000):
+    """A vibrato sine with its octave and light noise, as bench.py's."""
+    rng = np.random.default_rng(0)
+    t = np.arange(int(seconds * sr)) / sr
+    vibrato = 1.0 + 0.01 * np.sin(2 * np.pi * 5.0 * t)
+    return (0.4 * np.sin(2 * np.pi * 220.0 * t * vibrato)
+            + 0.1 * np.sin(2 * np.pi * 440.0 * t)
+            + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+_BENCH_TIERS = dict(x_pad=1, x_query=6, x_center=30, x_max=32, chunk_batch=2,
+                    bucket_step_s=4, compute_dtype="bfloat16")
+_FULL = {}
+
+
+def _full_width(use_f0):
+    """The full-width 48 kHz v2 model (f0 or no-f0) at bench's tiers in bf16,
+    with the 60 s song prepared on it; built once per model."""
+    from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions, EngineConfig
+    from polgen_rvc_tpu_torch.pipeline.factory import build_synthetic_converter
+
+    if use_f0 not in _FULL:
+        vc = build_synthetic_converter(tiny=False, sr=48000, index_vectors=65536,
+                                       engine=EngineConfig(**_BENCH_TIERS),
+                                       device="cuda", use_f0=use_f0)
+        opts = ConversionOptions(index_rate=0.5, protect=0.33, volume_envelope=0.25)
+        with torch.inference_mode():
+            _FULL[use_f0] = vc, opts, vc._prepare_song(_bench_like_song(60.0), opts)
+    return _FULL[use_f0]
+
+
+@pytest.mark.parametrize("use_f0", [True, False], ids=["f0", "nof0"])
+@pytest.mark.parametrize("bucket_s", range(4, 49, 4))
+def test_one_row_shard_gives_the_batch_bytes_at_every_bucket(dev, bucket_s, use_f0):
+    """At every bucket class of bench's tiers (4-48 s), a packed two-row
+    batch's row work (_shard_rows), run on both rows and on each row alone
+    as a 2x1 mesh's data shard runs it: each row alone gives the two-row
+    batch's bytes. (Before the row-count route, enc_p's FFN conv2 and the
+    flow's WaveNet in convs at 1,198-1,998 frames, HuBERT's attention
+    product at 798 and its group-norm sums at 4,398-4,798 gave other
+    bytes.)"""
+    from polgen_rvc_tpu_torch.pipeline.chunking import Chunk
+
+    vc, opts, prep = _full_width(use_f0)
+    eng = vc.engine
+    bucket, w = bucket_s * eng.sample_rate, eng.window
+    lens = (bucket - eng.sample_rate // 2, bucket * 3 // 4 // w * w)
+    mid = (prep.buf.shape[0] - lens[1]) // 2 // w * w
+    chunks = [Chunk(0, 0, start, start + n) for start, n in zip((0, mid), lens)]
+    p_len = min(bucket // w, 2 * vc.hubert_cfg.num_frames(bucket))
+    with torch.inference_mode():
+        rows = vc._assemble_rows([(c, ci, prep.buf, prep.pitch, prep.pitchf)
+                                  for ci, c in enumerate(chunks)], p_len)
+        inp = vc._batch_inputs(rows, bucket, p_len)
+        rest = (bucket, p_len, opts, True, use_f0)
+        shard = vc._data_shards()[0]
+        both = vc._shard_rows(shard, inp, *rest)
+        for r in range(2):
+            alone = vc._shard_rows(shard, {k: None if v is None else v[r:r + 1]
+                                           for k, v in inp.items()}, *rest)
+            assert torch.equal(alone[0], both[r]), (bucket_s, r)
+
+
+HOSTS_CODE = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from polgen_rvc_tpu_torch.parallel import convert_batch_across_hosts, init_hosts, make_mesh
+from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions, EngineConfig
+from polgen_rvc_tpu_torch.pipeline.factory import build_synthetic_converter
+songs = [np.load(p) for p in SONGS]
+vc = build_synthetic_converter(tiny=False, sr=48000, index_vectors=65536,
+                               engine=EngineConfig(**TIERS),
+                               mesh=make_mesh(2, 1, devices=["cuda:0"] * 2))
+init_hosts(PORT, 2, RANK, timeout_s=300)
+out = convert_batch_across_hosts(vc, songs, ConversionOptions(**OPTS))
+dist.destroy_process_group()
+if RANK == 0:
+    for i, (audio, _) in enumerate(out):
+        np.save(f"{OUT}/song{i}.npy", audio)
+"""
+
+
+def test_two_ranks_on_one_card_give_one_process_bytes(dev, tmp_path):
+    """convert_batch_across_hosts over two gloo ranks, each on a local 2x1
+    mesh over cuda:0 (a row a data shard), on 23 and 9 s songs of the
+    full-width model: every gathered song equals one process's
+    convert_batch of both, byte for byte (packed together there, each
+    alone on a rank)."""
+    import socket
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions, EngineConfig
+    from polgen_rvc_tpu_torch.pipeline.factory import build_synthetic_converter
+
+    song = _bench_like_song(60.0)
+    paths = []
+    for i, seconds in enumerate((23, 9)):
+        paths.append(str(tmp_path / f"in{i}.npy"))
+        np.save(paths[-1], song[:seconds * 16000])
+    opts = dict(index_rate=0.5, protect=0.33, volume_envelope=0.25)
+    with socket.create_server(("127.0.0.1", 0)) as s:
+        port = s.getsockname()[1]
+    repo = Path(__file__).resolve().parents[1]
+    head = (f"SONGS, TIERS, OPTS, PORT, OUT = {paths!r}, {_BENCH_TIERS!r}, {opts!r}, "
+            f"{port}, {str(tmp_path)!r}\n")
+    procs = [subprocess.Popen([sys.executable, "-c", f"RANK = {rank}\n{head}{HOSTS_CODE}"],
+                              cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for rank in range(2)]
+    deadline = time.monotonic() + 600
+    try:
+        results = [p.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+                   for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (out, err) in zip(procs, results):
+        assert p.returncode == 0, err
+    vc = build_synthetic_converter(tiny=False, sr=48000, index_vectors=65536,
+                                   engine=EngineConfig(**_BENCH_TIERS), device="cuda")
+    refs = vc.convert_batch([np.load(p) for p in paths], ConversionOptions(**opts))
+    for i, (ref, _) in enumerate(refs):
+        np.testing.assert_array_equal(np.load(tmp_path / f"song{i}.npy"), ref)

@@ -139,11 +139,17 @@ def _imports(path: Path):
             yield node.module
 
 
+# the port's scripts at the repo root, beside the package
+PORT_SCRIPTS = ("chip_smoke.py", "mesh_stages.py", "kernel_times.py", "hosts_dryrun.py")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Statically: no module of the port names jax or polgen_rvc_tpu. At run
-    time: importing every module in a fresh interpreter loads neither."""
+    """Statically: no module of the port, and none of its root scripts,
+    names jax or polgen_rvc_tpu. At run time: importing every module and
+    script in a fresh interpreter loads neither."""
     modules = []
-    for path in sorted(PKG.rglob("*.py")):
+    scripts = [PKG.parent / name for name in PORT_SCRIPTS]
+    for path in [*sorted(PKG.rglob("*.py")), *scripts]:
         for name in _imports(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "polgen_rvc_tpu"), (path, name)
