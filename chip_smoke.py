@@ -894,29 +894,32 @@ def model_bytes(vc) -> int:
     return sum(seen.values())
 
 
-def kernel_wrappers() -> dict:
-    """Each kernel's wrapper, which counts its launches, by kernel name."""
-    from polgen_rvc_tpu_torch.ops import (
-        band_attention, conv_transpose, resblock_group, unet_chain, viterbi,
-    )
+def launch_baseline() -> dict:
+    """{kernel name: its launch counter's value at the last zero_launches}
+    for each hand-written kernel (the port's ``launches.<kernel>``
+    counters, utils/tracing.py)."""
+    from polgen_rvc_tpu_torch.ops.cuda_build import KERNELS
 
-    return {"resblock_group": resblock_group.fused_resblock_group,
-            "conv_transpose": conv_transpose.conv_transpose1d,
-            "band_attention": band_attention.band_attention,
-            "unet_chain": unet_chain.convblock_chain,
-            "viterbi": viterbi.viterbi_path}
+    return dict.fromkeys(KERNELS, 0)
 
 
-def zero_launches(wrappers: dict):
-    for fn in wrappers.values():
-        fn.launches = 0
+def zero_launches(baseline: dict):
+    from polgen_rvc_tpu_torch.utils.tracing import counters
+
+    now = counters()
+    for name in baseline:
+        baseline[name] = now.get(f"launches.{name}", 0)
 
 
-def read_launches(wrappers: dict) -> dict:
-    return {name: fn.launches for name, fn in wrappers.items()}
+def read_launches(baseline: dict) -> dict:
+    """Each kernel's launches since the last zero_launches(baseline)."""
+    from polgen_rvc_tpu_torch.utils.tracing import counters
+
+    now = counters()
+    return {name: now.get(f"launches.{name}", 0) - at for name, at in baseline.items()}
 
 
-def drive(vc, song, opts, wrappers: dict) -> dict:
+def drive(vc, song, opts, baseline: dict) -> dict:
     """One warm-up convert; then every kernel's launch count set to 0, one
     timed convert, the counts read. Returns its numbers and output, and
     whether the two converts gave the same bytes (repeatable). Peak
@@ -929,7 +932,7 @@ def drive(vc, song, opts, wrappers: dict) -> dict:
     warm_out, _ = vc.convert(song, opts)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    zero_launches(wrappers)
+    zero_launches(baseline)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
@@ -943,7 +946,7 @@ def drive(vc, song, opts, wrappers: dict) -> dict:
             "realtime_factor": SONG_SECONDS / wall,
             "max_memory_allocated": peak, "resident_before_bytes": resident,
             "model_bytes": weights, "peak_own_bytes": peak - resident + weights,
-            "launches": read_launches(wrappers),
+            "launches": read_launches(baseline),
             "repeatable": bool(np.array_equal(warm_out, out)), "out": out, "sr": sr}
 
 
@@ -1049,7 +1052,7 @@ def chunk_spans(vc, plan) -> list:
     return spans
 
 
-def batch_phase(vc, song, opts, wrappers, smi, seconds=BATCH_SONGS_S) -> list:
+def batch_phase(vc, song, opts, baseline, smi, seconds=BATCH_SONGS_S) -> list:
     """convert_batch over four songs cut from the bench song (60, 41, 23 and
     9 s) on the main path's converter, against each song's serial convert.
 
@@ -1096,14 +1099,14 @@ def batch_phase(vc, song, opts, wrappers, smi, seconds=BATCH_SONGS_S) -> list:
     torch.cuda.synchronize()
     vc._chunk_batch = counted
     try:
-        zero_launches(wrappers)
+        zero_launches(baseline)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         packed = vc.convert_batch(songs, opts)
         torch.cuda.synchronize()
         packed_s = time.perf_counter() - t0
-        launches = read_launches(wrappers)
+        launches = read_launches(baseline)
     finally:
         del vc._chunk_batch
     peak = torch.cuda.max_memory_allocated()
@@ -1188,7 +1191,7 @@ def compare(out, ref, sr: int) -> dict:
     return entry
 
 
-def mesh_run(label, mvc, song, opts, refs, wrappers, smi, n_batches, bounds,
+def mesh_run(label, mvc, song, opts, refs, baseline, smi, n_batches, bounds,
              songs=None, nof0=None) -> dict:
     """One mesh converter against the unsharded outputs in refs: convert of
     the song (warm-up, counts to 0, timed convert, counts read, profile),
@@ -1211,7 +1214,7 @@ def mesh_run(label, mvc, song, opts, refs, wrappers, smi, n_batches, bounds,
                 "unet_chain": 112 * songs_n if use_f0 else 0, "viterbi": 0}
 
     parts = {}
-    run = drive(mvc, song, opts, wrappers)
+    run = drive(mvc, song, opts, baseline)
     prof = profile_convert(mvc, song, opts)
     parts["convert"] = {"wall_s": run["wall_s"], "realtime_factor": run["realtime_factor"],
                         "kernel_ms": prof["device_busy_ms"],
@@ -1222,11 +1225,11 @@ def mesh_run(label, mvc, song, opts, refs, wrappers, smi, n_batches, bounds,
                         **compare(run["out"], refs["convert"], run["sr"])}
     if songs is not None:
         mvc.convert_batch(songs, opts)
-        zero_launches(wrappers)
+        zero_launches(baseline)
         t0 = time.perf_counter()
         packed = mvc.convert_batch(songs, opts)
         wall = time.perf_counter() - t0
-        launches = read_launches(wrappers)
+        launches = read_launches(baseline)
         bprof = profile_call(lambda: mvc.convert_batch(songs, opts))
         parts["batch"] = {"wall_s": wall, "kernel_ms": bprof["device_busy_ms"],
                           "launches": launches,
@@ -1234,7 +1237,7 @@ def mesh_run(label, mvc, song, opts, refs, wrappers, smi, n_batches, bounds,
                           "songs": [compare(out, ref, sr) for (out, sr), (ref, _)
                                     in zip(packed, refs["batch"])]}
     if nof0 is not None:
-        nrun = drive(nof0, song, opts, wrappers)
+        nrun = drive(nof0, song, opts, baseline)
         nprof = profile_convert(nof0, song, opts)
         parts["nof0"] = {"wall_s": nrun["wall_s"], "kernel_ms": nprof["device_busy_ms"],
                          "launches": nrun["launches"],
@@ -1283,7 +1286,7 @@ SPLIT_BOUND = {"max_abs_diff": 400, "mel_distortion_db": 0.15}
 NOF0_SPLIT_BOUND = {"max_abs_diff": 1200, "mel_distortion_db": 0.25}
 
 
-def mesh_phase(eng, song, opts, main_out, wrappers, smi,
+def mesh_phase(eng, song, opts, main_out, baseline, smi,
                seconds=BATCH_SONGS_S) -> dict:
     """The counterpart of the JAX package's dryrun_multichip at full width,
     on the main path's song, engine and options, over one making of the
@@ -1339,7 +1342,7 @@ def mesh_phase(eng, song, opts, main_out, wrappers, smi,
             ("1x1", (1, 1), {"convert": "identical"}, {})):
         mesh = make_mesh(*shape, devices=one * (shape[0] * shape[1]))
         nof0 = build(eng, mesh, use_f0=False) if kw.pop("nof0", False) else None
-        runs.append(mesh_run(label, build(eng, mesh), song, opts, refs, wrappers, smi,
+        runs.append(mesh_run(label, build(eng, mesh), song, opts, refs, baseline, smi,
                              n_batches, bounds, nof0=nof0, **kw))
         del nof0
     count = torch.cuda.device_count()
@@ -1352,7 +1355,7 @@ def mesh_phase(eng, song, opts, main_out, wrappers, smi,
             eng, chunk_batch=n_data)
         brefs, bn = (refs, n_batches) if beng is eng else references(beng)
         runs.append(mesh_run("distinct_cards", build(beng, mesh), song, opts, brefs,
-                             wrappers, smi, bn, split, songs=songs,
+                             baseline, smi, bn, split, songs=songs,
                              nof0=build(beng, mesh, use_f0=False)))
     return {"runs": runs}
 
@@ -1373,7 +1376,7 @@ def write_f0_file(path: str, seconds: int = F0_FILE_SECONDS):
     return data[:, 0], data[:, 1]
 
 
-def f0_file_phase(vc, song, opts, main_out, wrappers, smi,
+def f0_file_phase(vc, song, opts, main_out, baseline, smi,
                   seconds=(60, 41, 23, 9)) -> dict:
     """The main path's converter with an F0 file of 10 ms lines covering
     20 s (pipeline/f0_file.py). The song's coarse pitch over the file's
@@ -1403,7 +1406,7 @@ def f0_file_phase(vc, song, opts, main_out, wrappers, smi,
         prep = vc._prepare_song(song, fopts)
         got = prep.pitch[start:stop].cpu().numpy()
         got_hz = prep.pitchf[start:stop].cpu().numpy()
-        run = drive(vc, song, fopts, wrappers)
+        run = drive(vc, song, fopts, baseline)
         profile = profile_convert(vc, song, fopts)
         songs = [song[:s * eng.sample_rate] for s in seconds]
         t0 = time.perf_counter()
@@ -1461,7 +1464,7 @@ def conv_pre_times(vc, buckets) -> dict:
     return out
 
 
-def checkpoint_phase(root, eng, song, opts, main_out, wrappers, smi) -> dict:
+def checkpoint_phase(root, eng, song, opts, main_out, baseline, smi) -> dict:
     """Write the main path's full-width model set as the files a user has
     (torch.save'd RVC v2 48 kHz f0 .pth, fairseq-layout HuBERT, RMVPE's raw
     state dict, a 65,536 x 768 IVF-Flat index in one list) under root, load
@@ -1492,12 +1495,12 @@ def checkpoint_phase(root, eng, song, opts, main_out, wrappers, smi) -> dict:
                           engine=eng, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    zero_launches(wrappers)
+    zero_launches(baseline)
     t0 = time.perf_counter()
     out, sr = cvc.convert(song, opts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches(wrappers)
+    launches = read_launches(baseline)
     d = np.abs(out.astype(np.int32) - main_out.astype(np.int32)) \
         if out.shape == main_out.shape else None
     result = {"phase": "checkpoint", "files": files, "write_s": write_s,
@@ -1517,7 +1520,7 @@ def checkpoint_phase(root, eng, song, opts, main_out, wrappers, smi) -> dict:
     return result
 
 
-def cli_phase(root, wrappers, smi) -> dict:
+def cli_phase(root, baseline, smi) -> dict:
     """In a working directory holding models/voice/ and assets/ (the
     checkpoint phase's files), a 20 s stereo 44.1 kHz WAV of the bench song
     through rvc_cli.main with -ir 0.5 -f wav, on the CLI's default engine
@@ -1540,12 +1543,12 @@ def cli_phase(root, wrappers, smi) -> dict:
     try:
         _write_wav("song.wav", np.stack([x, 0.8 * x], 1), in_sr)
         argv = ["-i", "song.wav", "-m", "voice", "-p", "0", "-ir", "0.5"]
-        zero_launches(wrappers)
+        zero_launches(baseline)
         t0 = time.perf_counter()
         path = rvc_cli.main(argv + ["-f", "wav"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = read_launches(wrappers)
+        launches = read_launches(baseline)
         y, sr = read_audio(path)
         (vc,) = voice_conversion._CONVERTER_CACHE.values()
         expected = expected_samples(vc, load_audio("song.wav", 16000), vc.engine, 48000)
@@ -1597,7 +1600,7 @@ def instrumental(seconds: int, sr: int = 44100) -> np.ndarray:
     return np.stack([bass + pad, bass + 0.8 * pad], 1).astype(np.float32)
 
 
-def cover_phase(root, wrappers, smi) -> dict:
+def cover_phase(root, baseline, smi) -> dict:
     """The cover maker's path through the app modules, in `root` (the
     checkpoint phase's files, the cli phase's song.wav): install the
     checkpoint's .pth and .index from a zip (upload_zip_file), convert the
@@ -1636,14 +1639,14 @@ def cover_phase(root, wrappers, smi) -> dict:
         steps["install_s"] = time.perf_counter() - t0
         installed = sorted(os.listdir(os.path.join("models", "cover")))
         voice_conversion.write_audio = keep
-        zero_launches(wrappers)
+        zero_launches(baseline)
         t0 = time.perf_counter()
         vocal = voice_conversion.voice_pipeline("song.wav", "cover", 0, index_rate=0.5,
                                                 output_format="flac",
                                                 output_dir="output_cover")
         torch.cuda.synchronize()
         steps["voice_pipeline_s"] = time.perf_counter() - t0
-        launches = read_launches(wrappers)
+        launches = read_launches(baseline)
         voice_conversion.write_audio = real_write
         _write_wav("instrumental.wav", instrumental(20), 44100)
         t0 = time.perf_counter()
@@ -1807,7 +1810,7 @@ def hosts_child(rank: str, port: str, root: str) -> int:
     from polgen_rvc_tpu_torch.pipeline.factory import build_converter
 
     rank, port = int(rank), int(port)
-    wrappers = kernel_wrappers()
+    baseline = launch_baseline()
     mesh = make_mesh(2, 1, devices=["cuda:0"] * 2)
     eng = EngineConfig(**BENCH_TIERS, compute_dtype="bfloat16")
     vc = build_converter(*checkpoint_files(root), engine=eng, mesh=mesh)
@@ -1816,12 +1819,12 @@ def hosts_child(rank: str, port: str, root: str) -> int:
     init_hosts(port, HOSTS, rank, timeout_s=HOSTS_TIMEOUT_S / 2)
     try:
         summed = host_sum(torch.full((2, 8), float(rank + 1)))
-        zero_launches(wrappers)
+        zero_launches(baseline)
         t0 = time.perf_counter()
         outs = convert_batch_across_hosts(vc, songs, ConversionOptions(**BENCH_OPTS))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = read_launches(wrappers)
+        launches = read_launches(baseline)
     finally:
         dist.destroy_process_group()
     if rank == 0:
@@ -1915,7 +1918,7 @@ def wait_job(base: str, job: str, timeout: float = 600.0) -> dict:
     raise AssertionError(f"serve: job {job} did not end in {timeout} s")
 
 
-def serve_phase(root, cover, wrappers, smi) -> dict:
+def serve_phase(root, cover, baseline, smi) -> dict:
     """The port's UI server (app/ui/server.py) on 127.0.0.1 from a thread,
     in the cover phase's working directory: POST /api/upload (multipart, the
     cli phase's WAV), /api/convert of the zip-installed model (index_rate
@@ -1970,9 +1973,9 @@ def serve_phase(root, cover, wrappers, smi) -> dict:
                 raise AssertionError(f"serve: /api/convert ended {st}")
             return time.perf_counter() - t0
 
-        zero_launches(wrappers)
+        zero_launches(baseline)
         walls["first_request_s"] = request()
-        launches = read_launches(wrappers)
+        launches = read_launches(baseline)
         served = http_json(f"{base}/audio/Voice_Converted.wav")
         walls["second_request_s"] = request()
         jobs = [json.loads(http_json(f"{base}/api/convert", req))["job"] for _ in range(2)]
@@ -2112,7 +2115,7 @@ def main() -> int:
           "build_s": build_s, "ptxas": ptxas, "native_build_s": native_s,
           "native": {k: os.path.relpath(v) for k, v in native_libs.items()}})
 
-    wrappers = kernel_wrappers()
+    baseline = launch_baseline()
     synth_kernels = ("resblock_group", "conv_transpose", "band_attention")
 
     # ---- main path (rmvpe+) ------------------------------------------------
@@ -2123,7 +2126,7 @@ def main() -> int:
     setup_s = time.perf_counter() - t0
     song = bench_song(SONG_SECONDS)
     opts = ConversionOptions(**BENCH_OPTS)
-    run = drive(vc, song, opts, wrappers)
+    run = drive(vc, song, opts, baseline)
     profile = profile_convert(vc, song, opts)
     # one more, untimed convert records each kernel's main-path inputs
     rec = Recorder()
@@ -2152,17 +2155,17 @@ def main() -> int:
         raise AssertionError("main path: two converts of the song differ")
 
     # ---- batch covers, model files, the CLI ---------------------------------
-    batch_out = batch_phase(vc, song, opts, wrappers, smi)
+    batch_out = batch_phase(vc, song, opts, baseline, smi)
     main_out = run["out"]
-    f0_file_phase(vc, song, opts, main_out, wrappers, smi)
+    f0_file_phase(vc, song, opts, main_out, baseline, smi)
     del vc, run
     # the model files stay until the hosts phase, the last
     workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     root = workdir.name
-    checkpoint_phase(root, eng, song, opts, main_out, wrappers, smi)
-    cli_phase(root, wrappers, smi)
-    cover = cover_phase(root, wrappers, smi)
-    serve_phase(root, cover, wrappers, smi)
+    checkpoint_phase(root, eng, song, opts, main_out, baseline, smi)
+    cli_phase(root, baseline, smi)
+    cover = cover_phase(root, baseline, smi)
+    serve_phase(root, cover, baseline, smi)
     prewarm_phase(root, main_out, smi)
 
     # ---- mangio-crepe path -------------------------------------------------
@@ -2171,7 +2174,7 @@ def main() -> int:
                                     engine=eng, device="cuda", with_crepe=True)
     setup_s = time.perf_counter() - t0
     copts = ConversionOptions(f0_method="mangio-crepe", **BENCH_OPTS)
-    crun = drive(cvc, song, copts, wrappers)
+    crun = drive(cvc, song, copts, baseline)
     cprofile = profile_convert(cvc, song, copts)
     crec = Recorder(names=("viterbi",))
     try:
@@ -2208,7 +2211,7 @@ def main() -> int:
                                     engine=eng, device="cuda", with_fcpe=True)
     setup_s = time.perf_counter() - t0
     fopts = ConversionOptions(f0_method="fcpe", **BENCH_OPTS)
-    frun = drive(fvc, song, fopts, wrappers)
+    frun = drive(fvc, song, fopts, baseline)
     fprofile = profile_convert(fvc, song, fopts)
     _, qbuf, inv_scale, padded_len = highpass_pad_quant(song, eng.t_pad, eng.window)
     fbuf = torch.from_numpy(qbuf).cuda().float() * float(inv_scale)
@@ -2243,7 +2246,7 @@ def main() -> int:
     f0_passes = []
     real_f0 = nvc.compute_f0
     nvc.compute_f0 = lambda *a, **k: (f0_passes.append(1), real_f0(*a, **k))[1]
-    nrun = drive(nvc, song, opts, wrappers)
+    nrun = drive(nvc, song, opts, baseline)
     nprofile = profile_convert(nvc, song, opts)
     emit({"phase": "nof0", "seconds_audio": SONG_SECONDS, "setup_s": setup_s,
           "f0_passes": len(f0_passes), **{k: v for k, v in nrun.items() if k != "out"},
@@ -2264,7 +2267,7 @@ def main() -> int:
     vvc = build_synthetic_converter(tiny=False, sr=32000, version="v1",
                                     index_vectors=65536, engine=eng, device="cuda")
     setup_s = time.perf_counter() - t0
-    vrun = drive(vvc, song, opts, wrappers)
+    vrun = drive(vvc, song, opts, baseline)
     vprofile = profile_convert(vvc, song, opts)
     vrec = Recorder(names=("resblock_group", "conv_transpose"))
     try:
@@ -2417,7 +2420,7 @@ def main() -> int:
     discriminator_phase(smi)
     # last, so that its converters and allocations cannot change what a
     # timed single-card path measures (a CREPE conv's cuDNN algorithm)
-    mesh_phase(eng, song, opts, main_out, wrappers, smi)
+    mesh_phase(eng, song, opts, main_out, baseline, smi)
     hosts_phase(root, batch_out, smi)
     workdir.cleanup()
 
@@ -2458,7 +2461,7 @@ def main() -> int:
                                 "the relative key and value terms, so not this "
                                 "function; the port never calls it"}
             if name == "band_attention" else {})}
-        for name in wrappers
+        for name in baseline
     ]}
     emit({"phase": "total"})
     emit(line)

@@ -2,12 +2,13 @@
 
 The flags, defaults and types of the JAX package's app/rvc_cli.py. The
 conversion runs on the CUDA card; --profile DIR writes a torch.profiler
-Chrome trace of it into DIR."""
+Chrome trace of it, with the request ids of its spans, into DIR/trace.json
+and what the port's counters gained into DIR/counters.json
+(utils/tracing.py)."""
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 
 
@@ -29,34 +30,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-f0max", "--f0_max", type=int, default=1100)
     parser.add_argument("-f", "--format", type=str, default="mp3")
     parser.add_argument("--profile", type=str, default=None,
-                        help="write a torch.profiler Chrome trace to this directory")
+                        help="write a torch.profiler Chrome trace and the port's "
+                             "counters to this directory")
     return parser
-
-
-@contextlib.contextmanager
-def maybe_profile(trace_dir):
-    """torch.profiler around the block when trace_dir is given: host ops,
-    and the card's kernels where CUDA is present, exported as a Chrome
-    trace to trace_dir/trace.json."""
-    if not trace_dir:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(trace_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
     from ..utils.progress import ProgressReporter
+    from ..utils.tracing import maybe_profile
     from .voice_conversion import RVC_MODELS_DIR, voice_pipeline
 
     if not os.path.exists(os.path.join(RVC_MODELS_DIR, args.model_name)):

@@ -25,6 +25,7 @@ from urllib.parse import urlparse
 
 from ... import resolve_device
 from ...utils.progress import ProgressReporter
+from ...utils.tracing import span
 from ..audio_processing import EFFECT_DEFAULTS, process_audio
 from ..install_embedders import EMBEDDER_PRESETS, download_and_replace_model
 from ..model_manager import (
@@ -45,7 +46,9 @@ class JobStore:
     Pipeline jobs are serialized on one lock: they write fixed output
     filenames (output/Voice_Converted.<fmt>), so two concurrent conversions
     would clobber each other's files. The reference's Gradio queue gives
-    the same one-at-a-time semantics."""
+    the same one-at-a-time semantics. A job's wait for that lock is a
+    ``polgen.job_wait`` span, and its run a ``polgen.job`` span carrying
+    the job id (its 12 hex digits as an integer)."""
 
     def __init__(self):
         self._jobs: dict[str, dict] = {}
@@ -68,8 +71,9 @@ class JobStore:
             with self._lock:
                 self._jobs[job_id].update(status="running", message="starting")
             try:
-                result = fn(*args, progress=ProgressReporter(progress_sink),
-                            **kwargs)
+                with span("polgen.job", int(job_id, 16)):
+                    result = fn(*args, progress=ProgressReporter(progress_sink),
+                                **kwargs)
                 with self._lock:
                     self._jobs[job_id].update(status="done", progress=1.0,
                                               result=result)
@@ -80,8 +84,12 @@ class JobStore:
 
         def run():
             if serialize:
-                with self._pipeline_lock:
+                with span("polgen.job_wait"):
+                    self._pipeline_lock.acquire()
+                try:
                     run_inner()
+                finally:
+                    self._pipeline_lock.release()
             else:
                 run_inner()
 

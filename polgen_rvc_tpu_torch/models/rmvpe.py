@@ -19,6 +19,7 @@ from ..ops.audio import log_mel_spectrogram, mel_filterbank
 from ..ops.conv import conv2d, conv_transpose2d
 from ..ops.rnn import bigru
 from ..ops.unet_chain import convblock_chain, pack_unet_weights
+from ..utils.tracing import spanned
 
 N_MELS = 128
 SAMPLE_RATE = 16000
@@ -34,6 +35,7 @@ def _mel_basis() -> np.ndarray:
                           fmin=MEL_FMIN, fmax=MEL_FMAX, htk=True)
 
 
+@spanned("polgen.rmvpe.mel")
 def rmvpe_mel(audio):
     """(B, T_samples) -> (B, 128, T_frames) log-mel, float32."""
     return log_mel_spectrogram(audio, _mel_basis(), n_fft=WIN_LENGTH,
@@ -59,10 +61,9 @@ def pack_rmvpe_weights(params):
     return out
 
 
-def rmvpe_salience(params, mel, *, compute_dtype=torch.float32):
-    """(B, 128, T) log-mel, T a multiple of 32 -> (B, T, 360) salience.
-    On the card, params come through pack_rmvpe_weights."""
-    x = mel.to(compute_dtype).transpose(1, 2)[:, None]  # (B, 1, T, 128)
+@spanned("polgen.rmvpe.unet")
+def _unet(params, x):
+    """The input norm, the U-Net and the 3-channel head conv."""
     inb = params["in_bn"]
     x = x * inb["scale"].to(x.dtype) + inb["shift"].to(x.dtype)
     skips = []
@@ -78,7 +79,13 @@ def rmvpe_salience(params, mel, *, compute_dtype=torch.float32):
                              output_padding=1)
         x = torch.cat([torch.relu(x), skip], dim=1)
         x = convblock_chain(x, dec["blocks"])
-    x = conv2d(x, params["cnn"]["w"], params["cnn"]["b"], padding=1)
+    return conv2d(x, params["cnn"]["w"], params["cnn"]["b"], padding=1)
+
+
+def rmvpe_salience(params, mel, *, compute_dtype=torch.float32):
+    """(B, 128, T) log-mel, T a multiple of 32 -> (B, T, 360) salience.
+    On the card, params come through pack_rmvpe_weights."""
+    x = _unet(params, mel.to(compute_dtype).transpose(1, 2)[:, None])  # (B, 1, T, 128)
     b, c, t, m = x.shape
     x = x.float().transpose(1, 2).reshape(b, t, c * m)
     x = bigru(x, params["gru"])

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from ..ops.band_attention import band_attention
 from ..ops.conv import conv1d
+from ..utils.tracing import span, spanned
 
 WINDOW_SIZE = 10
 
@@ -115,6 +116,7 @@ def transformer_encoder(x, x_mask, layers, *, n_heads: int, kernel_size: int,
     return x * x_mask
 
 
+@spanned("polgen.enc_p")
 def text_encoder(params, cfg: SynthesizerConfig, phone, pitch, x_mask, rows=None):
     """enc_p: (B, T, input_dim) features (+ coarse pitch embedding)
     -> (m_p, logs_p), each (B, inter, T); rows: as synthesizer_infer."""
@@ -161,6 +163,7 @@ def _coupling_reverse(x, x_mask, params, g, cfg: SynthesizerConfig, rows=None):
     return torch.cat([x0, (x1 - m) * x_mask], dim=1)
 
 
+@spanned("polgen.flow")
 def flow_reverse(params, cfg: SynthesizerConfig, z_p, x_mask, g, rows=None):
     """ResidualCouplingBlock reverse: 4x (coupling, flip) undone in reverse;
     rows: as synthesizer_infer."""
@@ -207,7 +210,8 @@ def synthesizer_infer(params: dict, cfg: SynthesizerConfig, phone, x_mask,
     z_p = z_p * x_mask.float()
     z = flow_reverse(params["flow"], cfg, z_p.to(compute_dtype), x_mask, g, rows)
     z = z * x_mask
-    if not cfg.use_f0:
-        return generator(params["dec"], cfg, z, g, frames=dec_frames)
-    return generator_nsf(params["dec"], cfg, z, nsff0, g, noise=nsf_noise,
-                         frames=dec_frames)
+    with span("polgen.decoder"):
+        if not cfg.use_f0:
+            return generator(params["dec"], cfg, z, g, frames=dec_frames)
+        return generator_nsf(params["dec"], cfg, z, nsff0, g, noise=nsf_noise,
+                             frames=dec_frames)

@@ -28,6 +28,7 @@ import ctypes
 
 import torch
 
+from ..utils.tracing import count
 from . import cuda_build
 
 BLOCK_ROWS = 64  # query rows of one cluster (csrc/band_attention.cu)
@@ -105,8 +106,5 @@ def band_attention(q, k, v, rel_k, rel_v, lengths, window: int):
                          (ctypes.c_int,) * 5)
     cuda_build.launch(fn, q.device, *(cuda_build.ptr(a) for a in (*ops, lens, out)),
                       bh, t, dk, window, int(q.dtype == torch.float32))
-    band_attention.launches += 1
+    count("launches.band_attention")
     return out
-
-
-band_attention.launches = 0

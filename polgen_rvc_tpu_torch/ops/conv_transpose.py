@@ -27,6 +27,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..utils.tracing import count
 from . import cuda_build
 
 
@@ -117,8 +118,5 @@ def conv_transpose1d(x, w, b, *, stride: int, padding: int, taps=None):
                       cuda_build.ptr(bias), cuda_build.ptr(y),
                       bsz, c_in, c_out, t, stride, padding,
                       int(x.dtype == torch.bfloat16))
-    conv_transpose1d.launches += 1
+    count("launches.conv_transpose")
     return y
-
-
-conv_transpose1d.launches = 0

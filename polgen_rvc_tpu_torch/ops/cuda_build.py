@@ -11,7 +11,9 @@ once. Nothing here runs at import: the CPU has no nvcc and needs none.
 ``build_all`` and ``load`` hold one lock of the process, so a library is
 built and loaded once whichever thread asks first (a server's job threads,
 ``prewarm``); ``counts()`` gives how many libraries this process has built
-with nvcc and loaded with ctypes.
+with nvcc and loaded with ctypes (the ``kernel_builds`` and ``kernel_loads``
+counters of utils/tracing.py). Each nvcc run is a ``polgen.kernel_build.<name>``
+span.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.tracing import count, counters, span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("resblock_group", "conv_transpose", "band_attention", "unet_chain",
@@ -39,7 +43,6 @@ NVCC_FLAGS = (
 _LOCK = threading.RLock()
 _LIBS: dict = {}
 _FNS: dict = {}
-_COUNTS = {"builds": 0, "loads": 0}
 
 
 def _nvcc() -> str:
@@ -80,16 +83,20 @@ def build_all(names=KERNELS, max_workers: int | None = None) -> dict:
                 out = library_path(name)
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
                 cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                # the span runs from the start of its nvcc to its end's collection
+                building = span(f"polgen.kernel_build.{name}")
+                building.__enter__()
                 procs[name] = (subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-                ), tmp, out)
-            for name, (proc, tmp, out) in procs.items():
+                ), tmp, out, building)
+            for name, (proc, tmp, out, building) in procs.items():
                 log, _ = proc.communicate()
+                building.__exit__(None, None, None)
                 if proc.returncode != 0:
                     failed.append(f"{name}:\n{log}")
                     continue
                 os.replace(tmp, out)
-                _COUNTS["builds"] += 1
+                count("kernel_builds")
                 reports[name] = log
         if failed:
             raise RuntimeError("nvcc failed\n" + "\n".join(failed))
@@ -102,15 +109,15 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _LIBS:
             build_all((name,))
             _LIBS[name] = ctypes.CDLL(str(library_path(name)))
-            _COUNTS["loads"] += 1
+            count("kernel_loads")
         return _LIBS[name]
 
 
 def counts() -> dict:
     """{"builds": libraries compiled, "loads": libraries loaded} so far in
     this process."""
-    with _LOCK:
-        return dict(_COUNTS)
+    now = counters()
+    return {"builds": now.get("kernel_builds", 0), "loads": now.get("kernel_loads", 0)}
 
 
 def bind(name: str, symbol: str, n_ptr: int, tail: tuple):

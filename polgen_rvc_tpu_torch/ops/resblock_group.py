@@ -28,6 +28,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..utils.tracing import count
 from . import cuda_build
 
 LRELU_SLOPE = 0.1
@@ -177,7 +178,7 @@ def resblock_pair(src, conv1, conv2, kernel_size: int, dilation: int, *,
         int(last), float(n_res),
         int(src.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16),
     )
-    fused_resblock_group.launches += 1
+    count("launches.resblock_group")
     return out
 
 
@@ -221,6 +222,3 @@ def fused_resblock_group(x, params_list, kernel_sizes, dilations, *,
                 resblock_pair(src, p1, p2, k, d, acc=acc if r else None, out=acc,
                               slope=slope)
     return out
-
-
-fused_resblock_group.launches = 0

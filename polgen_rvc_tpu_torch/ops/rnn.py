@@ -9,9 +9,12 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.tracing import spanned
+
 _GRU_NAMES = ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0")
 
 
+@spanned("polgen.rmvpe.bigru")
 def bigru(x, params: dict):
     """(B, T, I) -> (B, T, 2H): concat(forward, backward) hidden states."""
     hdim = params["w_hh_l0"].shape[1]

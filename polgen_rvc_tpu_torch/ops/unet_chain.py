@@ -28,6 +28,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..utils.tracing import count
 from . import cuda_build
 
 
@@ -188,7 +189,7 @@ def unet_conv3x3(src, conv, *, res=None, shortcut=None, out_dtype=torch.float32)
         int(res is not None and res.dtype == torch.bfloat16),
         int(out.dtype == torch.bfloat16),
     )
-    convblock_chain.launches += 1
+    count("launches.unet_chain")
     return out
 
 
@@ -221,6 +222,3 @@ def convblock_chain(x, blocks):
         cur = unet_conv3x3(h, blk["conv2"], res=cur, shortcut=blk.get("shortcut"),
                            out_dtype=x.dtype if i == len(blocks) - 1 else torch.float32)
     return cur
-
-
-convblock_chain.launches = 0

@@ -31,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.tracing import count
 from . import cuda_build
 
 PITCH_BINS = 360
@@ -135,7 +136,7 @@ def viterbi_path(log_obs, n: int, width: int = WIDTH):
     rows = _forward(log_obs, n)
     back, maps = _backpointers(rows, n)
     path = _walk(rows, back, maps, t_len, n)
-    viterbi_path.launches += 1
+    count("launches.viterbi")
     return path
 
 
@@ -174,6 +175,3 @@ def _walk(rows, back, maps, t_len: int, n: int):
     cuda_build.launch(fn, rows.device, *(cuda_build.ptr(a) for a in (rows, back, maps, path)),
                       t_len, n)
     return path
-
-
-viterbi_path.launches = 0

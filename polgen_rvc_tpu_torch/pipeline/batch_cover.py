@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.progress import NULL_PROGRESS, ProgressReporter
+from ..utils.tracing import spanned
 from .config import ConversionOptions
 
 
@@ -63,6 +64,7 @@ class BatchCoverMixin:
     """convert_batch half of VoiceConverter (pipeline/engine.py)."""
 
     @torch.inference_mode()
+    @spanned("polgen.convert_batch", request=True)
     def convert_batch(self, audios: list, opts: ConversionOptions = None,
                       progress: ProgressReporter = NULL_PROGRESS) -> list:
         """Float mono 16 kHz songs -> [(int16 audio, output sample rate)],

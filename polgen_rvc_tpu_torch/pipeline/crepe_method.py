@@ -20,6 +20,7 @@ from ..models.crepe import (
     crepe_f0_decode_device, crepe_resize_device, crepe_salience_window,
 )
 from ..ops.f0_utils import coarse_f0
+from ..utils.tracing import span
 
 # frames per salience slab: CREPE's first conv expands each frame to
 # 1024 channels x 256 rows, ~0.5 MB in bf16, so a slab peaks at a few GB
@@ -34,13 +35,15 @@ def crepe_f0(params, buf, padded_len: int, opts, *, window: int = 160,
     params come through models.crepe.pack_crepe_weights."""
     hop = int(opts.hop_length)
     n = padded_len // hop + 1
-    sal = torch.cat([
-        crepe_salience_window(params, buf, 1.0, start, hop,
-                              min(_FRAME_BUCKET, n - start),
-                              compute_dtype=compute_dtype).to(torch.float16)
-        for start in range(0, n, _FRAME_BUCKET)
-    ])
-    f0 = crepe_f0_decode_device(sal, n, f0_min=opts.f0_min, f0_max=opts.f0_max)
+    with span("polgen.crepe.net"):
+        sal = torch.cat([
+            crepe_salience_window(params, buf, 1.0, start, hop,
+                                  min(_FRAME_BUCKET, n - start),
+                                  compute_dtype=compute_dtype).to(torch.float16)
+            for start in range(0, n, _FRAME_BUCKET)
+        ])
+    with span("polgen.crepe.viterbi"):
+        f0 = crepe_f0_decode_device(sal, n, f0_min=opts.f0_min, f0_max=opts.f0_max)
     f0 = crepe_resize_device(f0, n, padded_len // window, buf.shape[0] // 160 + 1)
     pitchf = f0 * float(np.float32(2.0 ** (opts.pitch / 12.0)))
     return coarse_f0(pitchf, opts.f0_min, opts.f0_max), pitchf

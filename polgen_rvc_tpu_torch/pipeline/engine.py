@@ -15,6 +15,16 @@ its samples and pitch from its own song. Last, per song
 (``_finish_song``): the RMS-envelope gain over the whole song, per-chunk
 int16 pack, the optional output resample and the final normalize.
 
+Each phase is a span of utils/tracing.py: ``polgen.convert`` (the
+request), ``polgen.prepare`` (``polgen.highpass``, ``polgen.plan``,
+``polgen.upload``, ``polgen.f0``, ``polgen.f0_file``), ``polgen.chunk_batch``
+(``polgen.rows``, ``polgen.noise``, ``polgen.hubert``, ``polgen.retrieval``,
+``polgen.protect``, the synthesizer's ``polgen.enc_p``, ``polgen.flow`` and
+``polgen.decoder``, ``polgen.trim``) and ``polgen.finish``
+(``polgen.envelope``, ``polgen.readback``, ``polgen.host_finalize``). A
+request's chunk batches count their computed and valid synthesizer frames
+(``frames_computed``, ``frames_valid``).
+
 Semantics follow the JAX engine: the same buckets (``_batch_geometry``),
 row assembly (``_assemble_rows``), masks and trim, and noise drawn at the
 fixed ``_noise_frames()`` length per song-local chunk id, so a chunk
@@ -51,6 +61,7 @@ from ..ops.filters import highpass_pad_quant
 from ..parallel.mesh import Mesh, replicate, shard_batch, shard_hubert_params
 from ..retrieval.topk import retrieval_blend
 from ..utils.progress import NULL_PROGRESS, ProgressReporter
+from ..utils.tracing import count, span, spanned
 from .batch_cover import BatchCoverMixin, bucket_class
 from .chunking import ChunkPlan, plan_chunks
 from .config import ConversionOptions, EngineConfig
@@ -257,18 +268,20 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
                 raise RuntimeError("fcpe weights not loaded (assets/predictors/fcpe.pt)")
             if padded_len is None:
                 raise ValueError("fcpe needs the padded signal length")
-            return self._fcpe_f0(buf, opts, padded_len)
+            with span("polgen.fcpe"):
+                return self._fcpe_f0(buf, opts, padded_len)
         if opts.f0_method not in ("rmvpe+", "rmvpe"):
             raise ValueError(f"unknown f0 method: {opts.f0_method}")
         if self.rmvpe_params is None:
             raise RuntimeError("rmvpe weights not loaded")
         mel, n = pad_frames_to_32(rmvpe_mel(buf[None].float()))
         sal = rmvpe_salience(self.rmvpe_params, mel)[:, :n]
-        f0_raw = salience_to_f0(sal, 0.03)
-        f0 = torch.where((f0_raw < opts.f0_min) | (f0_raw > opts.f0_max),
-                         torch.zeros_like(f0_raw), f0_raw)
-        pitchf = f0 * float(np.float32(2.0 ** (opts.pitch / 12.0)))
-        pitch = coarse_f0(pitchf, opts.f0_min, opts.f0_max)
+        with span("polgen.rmvpe.decode"):
+            f0_raw = salience_to_f0(sal, 0.03)
+            f0 = torch.where((f0_raw < opts.f0_min) | (f0_raw > opts.f0_max),
+                             torch.zeros_like(f0_raw), f0_raw)
+            pitchf = f0 * float(np.float32(2.0 ** (opts.pitch / 12.0)))
+            pitch = coarse_f0(pitchf, opts.f0_min, opts.f0_max)
         return pitch[0], pitchf[0]
 
     def _fcpe_f0(self, buf, opts: ConversionOptions, padded_len: int):
@@ -371,24 +384,28 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
         eng, dev, cdt = self.engine, shard.device, self.compute_dtype
         v1 = self.version == "v1"
         n_layers = self.hubert_cfg.n_layers
-        hub_pad = (torch.arange(self.hubert_cfg.num_frames(bucket), device=dev)[None, :]
-                   >= inp["hub_valid"][:, None])
-        feats = hubert_extract_tp(
-            shard.hubert_params, shard.hubert_devices, self.hubert_cfg, inp["wav"],
-            output_layer=9 if (v1 and n_layers >= 9) else n_layers,
-            final_proj=v1, compute_dtype=cdt, padding_mask=hub_pad,
-            valid_samples=inp["samp_lens"], rows=eng.chunk_batch,
-        )
+        with span("polgen.hubert"):
+            hub_pad = (torch.arange(self.hubert_cfg.num_frames(bucket), device=dev)[None, :]
+                       >= inp["hub_valid"][:, None])
+            feats = hubert_extract_tp(
+                shard.hubert_params, shard.hubert_devices, self.hubert_cfg, inp["wav"],
+                output_layer=9 if (v1 and n_layers >= 9) else n_layers,
+                final_proj=v1, compute_dtype=cdt, padding_mask=hub_pad,
+                valid_samples=inp["samp_lens"], rows=eng.chunk_batch,
+            )
         feats0 = feats
         if use_index:
-            feats = retrieval_blend(feats, shard.index_bank, float(opts.index_rate),
-                                    k=eng.retrieval_k)
+            with span("polgen.retrieval"):
+                feats = retrieval_blend(feats, shard.index_bank, float(opts.index_rate),
+                                        k=eng.retrieval_k)
         feats = feats.repeat_interleave(2, dim=1)[:, :p_len]
         pitch, pitchf, frame_mask = inp["pitch"], inp["pitchf"], inp["mask"]
         if use_protect:
-            feats0 = feats0.repeat_interleave(2, dim=1)[:, :p_len]
-            pff = torch.where(pitchf > 0, 1.0, float(opts.protect)).to(feats.dtype)[..., None]
-            feats = feats * pff + feats0 * (1.0 - pff)
+            with span("polgen.protect"):
+                feats0 = feats0.repeat_interleave(2, dim=1)[:, :p_len]
+                pff = torch.where(pitchf > 0, 1.0,
+                                  float(opts.protect)).to(feats.dtype)[..., None]
+                feats = feats * pff + feats0 * (1.0 - pff)
 
         # each row's noise drawn on self.device by (seed, chunk id), as
         # without a mesh, then moved with the row; a no-f0 model draws the
@@ -396,12 +413,13 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
         # drops its source key
         nf = self._noise_frames()
         upp = self.synth_cfg.upp
-        draws = [self.noise_provider(opts.seed, int(ci),
-                                     (self.synth_cfg.inter_channels, nf), nf * upp,
-                                     self.device)
-                 for ci in inp["ids"]]
-        eps = torch.stack([e for e, _ in draws]).to(dev)
-        nsf = torch.stack([n for _, n in draws]).to(dev)
+        with span("polgen.noise"):
+            draws = [self.noise_provider(opts.seed, int(ci),
+                                         (self.synth_cfg.inter_channels, nf), nf * upp,
+                                         self.device)
+                     for ci in inp["ids"]]
+            eps = torch.stack([e for e, _ in draws]).to(dev)
+            nsf = torch.stack([n for _, n in draws]).to(dev)
         sid = torch.full((frame_mask.shape[0],), opts.speaker_id, dtype=torch.long,
                          device=dev)
         audio = synthesizer_infer(
@@ -411,12 +429,13 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
             rows=eng.chunk_batch,
         ).float()
 
-        t_pad_tgt = self.tgt_sr * eng.x_pad
-        out_len = p_len * upp - 2 * t_pad_tgt
-        nvalid = torch.clamp(frame_mask.sum(1).long() * upp - 2 * t_pad_tgt, min=0)
-        trimmed = audio[:, t_pad_tgt:t_pad_tgt + out_len]
-        idx = torch.arange(out_len, device=dev)[None, :]
-        return torch.where(idx < nvalid[:, None], trimmed, torch.zeros_like(trimmed))
+        with span("polgen.trim"):
+            t_pad_tgt = self.tgt_sr * eng.x_pad
+            out_len = p_len * upp - 2 * t_pad_tgt
+            nvalid = torch.clamp(frame_mask.sum(1).long() * upp - 2 * t_pad_tgt, min=0)
+            trimmed = audio[:, t_pad_tgt:t_pad_tgt + out_len]
+            idx = torch.arange(out_len, device=dev)[None, :]
+            return torch.where(idx < nvalid[:, None], trimmed, torch.zeros_like(trimmed))
 
     def _chunk_batch(self, rows, bucket: int, p_len: int,
                      opts: ConversionOptions, use_index: bool, use_protect: bool):
@@ -425,44 +444,59 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
         shard runs its rows on its own devices, every shard's work issued
         before any shard's result is read back, and the rows come back in
         row order (one shard's rows as they are: no copy)."""
-        inputs = self._batch_inputs(rows, bucket, p_len)
+        with span("polgen.rows"):
+            parts = self._split_rows(self._batch_inputs(rows, bucket, p_len))
         outs = [self._shard_rows(shard, part, bucket, p_len, opts, use_index, use_protect)
-                for shard, part in zip(self._data_shards(), self._split_rows(inputs))]
+                for shard, part in zip(self._data_shards(), parts)]
         if len(outs) == 1:
             return outs[0]
-        return torch.cat([out.to(self.device) for out in outs])
+        with span("polgen.trim"):
+            return torch.cat([out.to(self.device) for out in outs])
 
     # ------------------------------------------------------------------
     # per song, per batch, and the full pipeline
     # ------------------------------------------------------------------
 
+    @spanned("polgen.prepare")
     def _prepare_song(self, audio16k: np.ndarray, opts: ConversionOptions) -> SongPrep:
         """High-pass, pad and quantize on the host, plan the chunks, upload
         and dequantize the padded signal once, and run the F0 pass, then
         the F0 file's override where opts name one."""
         eng = self.engine
-        audio, qbuf, inv_scale, padded_len = highpass_pad_quant(
-            np.asarray(audio16k, np.float64), eng.t_pad, eng.window
-        )
-        plan = plan_chunks(audio, eng)
-        buf = torch.from_numpy(qbuf).to(self.device).float() * float(inv_scale)
+        with span("polgen.highpass"):
+            audio, qbuf, inv_scale, padded_len = highpass_pad_quant(
+                np.asarray(audio16k, np.float64), eng.t_pad, eng.window
+            )
+        with span("polgen.plan"):
+            plan = plan_chunks(audio, eng)
+        with span("polgen.upload"):
+            buf = torch.from_numpy(qbuf).to(self.device).float() * float(inv_scale)
         pitch = pitchf = None
         if self.synth_cfg.use_f0:
-            pitch, pitchf = self.compute_f0(buf, opts, padded_len)
+            with span("polgen.f0"):
+                pitch, pitchf = self.compute_f0(buf, opts, padded_len)
             if opts.f0_file:
-                pitch, pitchf = self._apply_f0_file(pitchf, opts,
-                                                    padded_len // eng.window)
+                with span("polgen.f0_file"):
+                    pitch, pitchf = self._apply_f0_file(pitchf, opts,
+                                                        padded_len // eng.window)
         return SongPrep(audio, plan, buf, pitch, pitchf)
 
-    def _convert_rows(self, entries, bucket: int, opts: ConversionOptions):
+    @spanned("polgen.chunk_batch")
+    def _convert_rows(self, entries, bucket: int, opts: ConversionOptions,
+                      counted: bool = True):
         """One chunk batch padded to `bucket`: (chunk, song-local chunk id,
         SongPrep) entries -> each entry's trimmed output samples on the
-        device (possibly empty)."""
+        device (possibly empty). A counted batch (a request's; prewarm's
+        are not) adds its frames to ``frames_computed`` and ``frames_valid``."""
         eng = self.engine
         p_len = min(bucket // eng.window, 2 * self.hubert_cfg.num_frames(bucket))
-        rows = self._assemble_rows(
-            [(c, ci, song.buf, song.pitch, song.pitchf) for c, ci, song in entries],
-            p_len)
+        with span("polgen.rows"):
+            rows = self._assemble_rows(
+                [(c, ci, song.buf, song.pitch, song.pitchf) for c, ci, song in entries],
+                p_len)
+        if counted:
+            count("frames_computed", eng.chunk_batch * p_len)
+            count("frames_valid", sum(rows["valid_frames"]))
         use_f0 = self.synth_cfg.use_f0
         use_index = self.index_bank is not None and opts.index_rate > 0
         use_protect = use_f0 and opts.protect < 0.5
@@ -472,24 +506,29 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
         return [out[row, :max(v * upp - 2 * t_pad_tgt, 0)]
                 for row, v in enumerate(rows["valid_frames"])]
 
+    @spanned("polgen.finish")
     def _finish_song(self, song: SongPrep, segments, opts: ConversionOptions):
         """A song's chunk outputs in chunk order -> (int16 audio, rate): the
         RMS-envelope gain over the whole song, the per-chunk int16 pack, and
         on the host the optional resample and the final normalize."""
         eng = self.engine
-        segments = [seg for seg in segments if seg.shape[0]]
-        lens = [seg.shape[0] for seg in segments]
-        out = torch.cat(segments) if segments else song.buf.new_zeros(0)
-        if opts.volume_envelope != 1.0 and out.numel():
-            src = song.buf[eng.t_pad:eng.t_pad + song.audio.shape[0]]
-            out = change_rms(src, eng.sample_rate, out, self.tgt_sr,
-                             float(opts.volume_envelope))
-        packed = [pack_int16(seg) for seg in torch.split(out, lens)]
-        host = [(seg.cpu().numpy(), float(am)) for seg, am in packed]
-        return host_finalize(rows_to_audio(host), self.tgt_sr, opts.resample_sr,
-                             eng.sample_rate)
+        with span("polgen.envelope"):
+            segments = [seg for seg in segments if seg.shape[0]]
+            lens = [seg.shape[0] for seg in segments]
+            out = torch.cat(segments) if segments else song.buf.new_zeros(0)
+            if opts.volume_envelope != 1.0 and out.numel():
+                src = song.buf[eng.t_pad:eng.t_pad + song.audio.shape[0]]
+                out = change_rms(src, eng.sample_rate, out, self.tgt_sr,
+                                 float(opts.volume_envelope))
+            packed = [pack_int16(seg) for seg in torch.split(out, lens)]
+        with span("polgen.readback"):
+            host = [(seg.cpu().numpy(), float(am)) for seg, am in packed]
+        with span("polgen.host_finalize"):
+            return host_finalize(rows_to_audio(host), self.tgt_sr, opts.resample_sr,
+                                 eng.sample_rate)
 
     @torch.inference_mode()
+    @spanned("polgen.convert", request=True)
     def convert(self, audio16k: np.ndarray,
                 opts: ConversionOptions = ConversionOptions(),
                 progress: ProgressReporter = NULL_PROGRESS):

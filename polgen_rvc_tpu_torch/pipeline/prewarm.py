@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_build
+from ..utils.tracing import spanned
 from .config import ConversionOptions
 
 SYNTH_KERNELS = ("resblock_group", "conv_transpose", "band_attention")
@@ -37,6 +38,7 @@ class PrewarmMixin:
         return f0 + SYNTH_KERNELS
 
     @torch.inference_mode()
+    @spanned("polgen.prewarm")
     def prewarm(self, audio16k: np.ndarray,
                 opts: ConversionOptions = ConversionOptions(),
                 max_workers: int = 8) -> int:
@@ -51,6 +53,9 @@ class PrewarmMixin:
            chunk batches (``_batch_geometry``);
         4. ``_finish_song`` on those rows when opts.volume_envelope != 1,
            for the RMS-envelope gain.
+
+        Its chunk batches add nothing to the frame counters
+        (utils/tracing.py): its work is no request.
 
         The device work runs in order on each device's current stream; only
         the nvcc builds run in parallel. On a mesh the chunk batches run
@@ -75,7 +80,8 @@ class PrewarmMixin:
                 continue
             seen.add(bucket)
             segments += self._convert_rows(
-                [(song.plan.chunks[ci], ci, song) for ci in idxs], bucket, opts)
+                [(song.plan.chunks[ci], ci, song) for ci in idxs], bucket, opts,
+                counted=False)
         warmed += len(seen)
         if opts.volume_envelope != 1.0:
             self._finish_song(song, segments, opts)

@@ -2,6 +2,7 @@
 voice pipeline and the CLI, held against the JAX package (tiny models,
 bench.py's CPU-smoke tiers, files written on the spot)."""
 
+import json
 import os
 
 import numpy as np
@@ -223,7 +224,8 @@ def test_voice_pipeline_file_to_file(app_root, monkeypatch, port_vc):
 
 def test_cli_main_converts_file_to_file(app_root, monkeypatch, tmp_path):
     """rvc_cli.main with get_converter building on the CPU from the files in
-    models/ and assets/; --profile writes a Chrome trace."""
+    models/ and assets/; --profile writes a Chrome trace holding the
+    convert's request span and what the frame counters gained."""
     monkeypatch.chdir(app_root)
     real = voice_conversion.get_converter
     built = []
@@ -238,7 +240,13 @@ def test_cli_main_converts_file_to_file(app_root, monkeypatch, tmp_path):
     trace = str(tmp_path / "trace")
     path = rvc_cli.main(["-i", "song.wav", "-m", "voice", "-p", "0", "-ir", "0.5",
                          "-f", "wav", "--profile", trace])
-    assert os.path.exists(os.path.join(trace, "trace.json"))
+    with open(os.path.join(trace, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    (convert,) = [e for e in events if e.get("name") == "polgen.convert"]
+    assert len(convert["args"]["Concrete Inputs"]) == 1
+    with open(os.path.join(trace, "counters.json")) as f:
+        counted = json.load(f)
+    assert 0 < counted["frames_valid"] < counted["frames_computed"]
     (vc,) = built
     assert vc.device.type == "cpu" and vc.index_bank is not None
     y, sr = audio_io.read_audio(path)

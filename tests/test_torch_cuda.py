@@ -37,11 +37,17 @@ def _t(a, dev):
     return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
 
-def _launched(fn, call):
-    before = fn.launches
+def _launches(kernel):
+    from polgen_rvc_tpu_torch.utils.tracing import counters
+
+    return counters().get(f"launches.{kernel}", 0)
+
+
+def _launched(kernel, call):
+    before = _launches(kernel)
     out = call()
     torch.cuda.synchronize()
-    return out, fn.launches - before
+    return out, _launches(kernel) - before
 
 
 def _resblock_params(rng, c, dev):
@@ -62,7 +68,7 @@ def test_resblock_group_kernel(dev, c, t, dtype):
     params, ks, ds = _resblock_params(rng, c, dev)
     x = _t(rng.standard_normal((2, c, t)) * 0.3, dev).to(dtype)
     packed = rg.pack_resblock_weights(params)
-    got, n = _launched(rg.fused_resblock_group,
+    got, n = _launched("resblock_group",
                        lambda: rg.fused_resblock_group(x, packed, ks, ds))
     ref = rg.resblock_group_plain(x, params, ks, ds, operand_dtype=torch.bfloat16)
     assert n == 9 and got.dtype == dtype and got.shape == x.shape
@@ -90,7 +96,7 @@ def test_resblock_pair_kernel(dev, c, t, mode):
     acc = _t(rng.standard_normal((2, c, t)), dev)
     kw = {"stream": {}, "sum": {"acc": acc},
           "mean": {"acc": acc, "last": True, "n_res": 3}}[mode]
-    got, n = _launched(rg.fused_resblock_group,
+    got, n = _launched("resblock_group",
                        lambda: rg.resblock_pair(x, p1, p2, k, d, **kw))
     bf16 = torch.bfloat16
     ref = rg.resblock_pair_plain(x, c1, c2, k, d, operand_dtype=bf16, **kw)
@@ -182,7 +188,7 @@ def test_conv_transpose_kernel(dev, u, k, c_in, c_out, t, dtype):
     w = _t(rng.standard_normal((c_in, c_out, k)) / np.sqrt(c_in * k), dev)
     b = _t(rng.standard_normal(c_out) * 0.02, dev)
     taps = ct.pack_phase_taps(w.to(torch.bfloat16), u, pad)
-    got, n = _launched(ct.conv_transpose1d,
+    got, n = _launched("conv_transpose",
                        lambda: ct.conv_transpose1d(x, w, b, stride=u, padding=pad,
                                                    taps=taps))
     ref = ct.conv_transpose1d_plain(x.float(), w, b, stride=u, padding=pad,
@@ -233,7 +239,7 @@ def test_padded_sixteen_wide_stage(dev, t, dtype):
     assert up["w"].shape == (32, 32, 4) and padded["conv_post"]["w"].shape == (1, 32, 7)
     x = _t(rng.standard_normal((2, 32, t)) * 0.5, dev).to(dtype)
     taps = ct.pack_phase_taps(up["w"].to(torch.bfloat16), 2, 1)
-    y, n = _launched(ct.conv_transpose1d, lambda: ct.conv_transpose1d(
+    y, n = _launched("conv_transpose", lambda: ct.conv_transpose1d(
         x, up["w"], up["b"], stride=2, padding=1, taps=taps))
     ref = ct.conv_transpose1d_plain(x.float(), dec["ups"][0]["w"], dec["ups"][0]["b"],
                                     stride=2, padding=1, operand_dtype=torch.bfloat16)
@@ -241,7 +247,7 @@ def test_padded_sixteen_wide_stage(dev, t, dtype):
     err = (y[:, :16].float() - ref).abs()
     assert bool((err <= 2.0 ** -8 * ref.abs() + 1e-4 * ref.abs().max() + 1e-5).all())
     packed = rg.pack_resblock_weights(padded["resblocks"])
-    got, n = _launched(rg.fused_resblock_group,
+    got, n = _launched("resblock_group",
                        lambda: rg.fused_resblock_group(y, packed, ks, ds))
     ref = rg.resblock_group_plain(y[:, :16], params, ks, ds, operand_dtype=torch.bfloat16)
     assert n == 9 and got.dtype == dtype and bool((got[:, 16:] == 0).all())
@@ -274,7 +280,7 @@ def test_band_attention_kernel(dev, bh, t, dk, lengths, rel_scale):
     rk = _t(rng.standard_normal((2 * w + 1, dk)) * rel_scale, dev)
     rv = _t(rng.standard_normal((2 * w + 1, dk)) * dk ** -0.5, dev)
     lens = torch.tensor(lengths, device=dev)
-    got, n = _launched(ba.band_attention,
+    got, n = _launched("band_attention",
                        lambda: ba.band_attention(q, k, v, rk, rv, lens, w))
     bf16 = torch.bfloat16
     ref = ba.band_attention_plain(q, k, v, rk, rv, lens, w, operand_dtype=bf16)
@@ -341,7 +347,7 @@ def test_unet_chain_kernel(dev, c_in, c_out, t, w, dtype):
     blocks = _unet_blocks(rng, c_in, c_out, dev)
     x = _t(rng.standard_normal((1, c_in, t, w)), dev).to(dtype)
     packed = uc.pack_unet_weights(blocks)
-    got, n = _launched(uc.convblock_chain, lambda: uc.convblock_chain(x, packed))
+    got, n = _launched("unet_chain", lambda: uc.convblock_chain(x, packed))
     ref = uc.convblock_chain_plain(x.float(), blocks, operand_dtype=torch.bfloat16)
     assert n == 4 and got.shape == (1, c_out, t, w) and got.dtype == dtype
     # bf16 operands both sides; one-ulp re-rounding between the 4 convs
@@ -383,7 +389,7 @@ def test_unet_conv3x3_kernel(dev, no_tf32, c_in, c_out, t, w, kind, dtype):
         conv = blk["conv2"]
         if "shortcut" not in blk:
             args["res"] = _t(rng.standard_normal((1, c_out, t, w)), dev).to(dtype)
-    got, n = _launched(uc.convblock_chain,
+    got, n = _launched("unet_chain",
                        lambda: uc.unet_conv3x3(src, conv, out_dtype=out_dtype, **args))
     ref = uc.unet_conv3x3_plain(src, conv, **args)
     assert n == 1 and got.dtype == out_dtype and got.shape == (1, c_out, t, w)
@@ -458,7 +464,7 @@ def test_viterbi_kernel(dev, case):
     else:
         t, n = (int(v) for v in case.split("/")[:2])
         lo = _viterbi_log_obs(rng, t, n, case.endswith("plateau"))
-    got, k = _launched(vt.viterbi_path, lambda: vt.viterbi_path(_t(lo, dev), n))
+    got, k = _launched("viterbi", lambda: vt.viterbi_path(_t(lo, dev), n))
     # the plain twin, which the CPU tests hold to JAX's scan and Pallas
     # paths: only fp32 adds, compares and subtracts, so exactly equal
     ref = vt.viterbi_path(torch.from_numpy(lo), n)
@@ -759,6 +765,29 @@ def _tiny_converter(**kw):
                             bucket_step_s=2, compute_dtype="bfloat16"), **kw)
 
 
+def test_program_spans_put_nothing_on_the_card(dev):
+    """A profiled tiny convert: the port's polgen.* spans are host records
+    only (no device event carries their names), the request span and the
+    chunk batch's are among them, and the card ran kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions
+
+    vc = _tiny_converter(device=dev)
+    opts = ConversionOptions(index_rate=0.5, protect=0.33, volume_envelope=0.25)
+    vc.convert(_mesh_song(), opts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        vc.convert(_mesh_song(), opts)
+        torch.cuda.synchronize()
+    host, device = set(), []
+    for e in prof.profiler.kineto_results.events():
+        (host.add(e.name()) if str(e.device_type()).endswith("CPU")
+         else device.append(e.name()))
+    assert {"polgen.convert", "polgen.chunk_batch", "polgen.rmvpe.bigru"} <= host
+    assert device and not [n for n in device if n.startswith("polgen.")]
+
+
 def test_convert_on_a_repeated_card_mesh(dev):
     """A tiny convert on a 2x2 mesh of cuda:0 named four times (one row a
     data shard, HuBERT over two model shards): within the repo's 0.5 dB
@@ -775,9 +804,9 @@ def test_convert_on_a_repeated_card_mesh(dev):
     n_batches = len(vc._batch_geometry(vc._prepare_song(song, opts).plan)[0])
     cfg = vc.synth_cfg
     pairs = len(cfg.upsample_rates) * sum(len(d) for d in cfg.resblock_dilation_sizes)
-    before = rg.fused_resblock_group.launches
+    before = _launches("resblock_group")
     got, _ = vc.convert(song, opts)
-    assert rg.fused_resblock_group.launches - before == pairs * 2 * n_batches
+    assert _launches("resblock_group") - before == pairs * 2 * n_batches
     assert got.shape == want.shape
     assert mel_distortion_db(got, want, sr) < 0.5
 

@@ -186,6 +186,7 @@ def test_kernel_wrappers_import_and_run_plain_without_nvcc(monkeypatch):
     from polgen_rvc_tpu_torch.ops import (
         band_attention, conv_transpose, cuda_build, resblock_group, unet_chain, viterbi,
     )
+    from polgen_rvc_tpu_torch.utils import tracing
 
     def no_build(*a, **k):
         raise AssertionError("a CPU call must not build kernels")
@@ -195,10 +196,7 @@ def test_kernel_wrappers_import_and_run_plain_without_nvcc(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build._nvcc()
-    wrappers = (resblock_group.fused_resblock_group, conv_transpose.conv_transpose1d,
-                band_attention.band_attention, unet_chain.convblock_chain,
-                viterbi.viterbi_path)
-    before = [w.launches for w in wrappers]
+    before = tracing.counters()
     g = torch.Generator().manual_seed(0)
     x = torch.randn(1, 32, 20, generator=g)
     p = [{"convs1": [{"w": torch.randn(32, 32, 3, generator=g) * 0.1,
@@ -221,7 +219,7 @@ def test_kernel_wrappers_import_and_run_plain_without_nvcc(monkeypatch):
     path = viterbi.viterbi_path(torch.randn(12, 360, generator=g), 9)
     assert path.shape == (12,) and path.dtype == torch.int32
     assert viterbi.viterbi_path(torch.zeros(0, 360), 0).shape == (0,)
-    assert [w.launches for w in wrappers] == before
+    assert tracing.counters() == before
 
 
 @pytest.mark.parametrize("method,error,match", [

@@ -64,15 +64,15 @@ def test_prewarm_visits_each_distinct_bucket_once(fresh_and_prewarmed, monkeypat
     song = _bench_song(seconds)
     opts = ConversionOptions(**{**BENCH_OPTS, "volume_envelope": 1.0})
     calls = []
-    monkeypatch.setattr(vc, "_convert_rows", lambda entries, bucket, o: calls.append(
-        (bucket, [ci for _, ci, _ in entries])) or [])
+    monkeypatch.setattr(vc, "_convert_rows", lambda entries, bucket, o, counted: calls.append(
+        (bucket, [ci for _, ci, _ in entries], counted)) or [])
     n = vc.prewarm(song, opts)
     idxs, buckets = vc._batch_geometry(vc._prepare_song(song, opts).plan)
     first = {}
     for ids, b in zip(idxs, buckets):
         first.setdefault(b, ids)
     assert (len(buckets), len(first)) == (batches, distinct)
-    assert calls == list(first.items())
+    assert calls == [(b, ids, False) for b, ids in first.items()]
     assert n == 1 + distinct
 
 
