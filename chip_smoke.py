@@ -6,7 +6,7 @@
 It drives five paths: rmvpe+ (the main path), mangio-crepe, fcpe, a no-f0
 model and a v1 32 kHz model, the main and no-f0 paths again on device
 meshes, and batch covers split over two processes, and holds each of the
-five kernels against its plain twin.
+six kernels against its plain twin.
 Phases, each printing one JSON line (any failure raises; exit code != 0):
   1. card:     nvidia-smi name and power limit, torch/CUDA versions, the
                parallel nvcc build of every kernel from csrc/ and its time,
@@ -22,7 +22,7 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                kernel of the path must have launched (all but viterbi), the
                resblock-group kernel exactly 36 times (4 stages x 9 conv
                pairs, one chunk batch), the U-Net chain kernel exactly 112
-               times (14 levels x 4 blocks x 2 convs).
+               times (14 levels x 4 blocks x 2 convs), the BiGRU scan once.
                The output must have the planned length, not be silent,
                and repeat the warm-up convert's bytes; its SHA-256 is
                printed, to compare two checkouts' outputs.
@@ -33,9 +33,10 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                bucket class and packed two rows a batch, each batch at its
                largest chunk's bucket: launches per packed batch (resblock group
                36, conv-transpose 4, band attention 6) and per song (U-Net
-               chain 112); every song equal to its serial convert byte for
-               byte, also where a chunk rides another bucket packed (the
-               decoder's conv_pre runs at one fixed length); wall, RTF and
+               chain 112, BiGRU scan 1); every song equal to its serial
+               convert byte for byte, also where a chunk rides another
+               bucket packed (the decoder's conv_pre runs at one fixed
+               length); wall, RTF and
                kernel time of the packed call and of the four serial
                converts, peak memory; conv_pre's time at each packed
                bucket's frames, at the fixed length and at its own.
@@ -122,10 +123,13 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                convs and its 1x1 shortcut as bf16 F.conv2d calls); for the
                U-Net chain the tile and grid of each level's launches; for
                the Viterbi decode its three launches timed apart (forward,
-               backpointers, walk); for band attention its TFLOP/s, its
-               CTAs and those that exit early (rows all past the length),
-               and a flash-SDPA yardstick on the same q, k, v over each
-               row's valid length (no relative terms).
+               backpointers, walk); for the BiGRU scan its projection and
+               its launch timed apart, the launch's us a step (its serial
+               floor), and cuDNN's nn.GRU on the same input and weights as
+               library_ms, within 1e-5 of the kernel; for band attention
+               its TFLOP/s, its CTAs and those that exit early (rows all
+               past the length), and a flash-SDPA yardstick on the same q,
+               k, v over each row's valid length (no relative terms).
   fcpe:        as the crepe path, with the full FCPE (12 layers x 512 channels,
                with_fcpe=True) and f0_method="fcpe": the resblock group 36
                times, conv-transpose 4, band attention, neither unet_chain
@@ -257,6 +261,7 @@ class Recorder:
         ("band_attention", "polgen_rvc_tpu_torch.models.synthesizer", "band_attention"),
         ("unet_chain", "polgen_rvc_tpu_torch.models.rmvpe", "convblock_chain"),
         ("viterbi", "polgen_rvc_tpu_torch.models.crepe", "viterbi_path"),
+        ("gru_scan", "polgen_rvc_tpu_torch.models.rmvpe", "bigru"),
     )
 
     def __init__(self, names=None):
@@ -557,13 +562,15 @@ def check_kernels(calls: dict) -> dict:
     from polgen_rvc_tpu_torch.ops import band_attention as ba
     from polgen_rvc_tpu_torch.ops import conv_transpose as ct
     from polgen_rvc_tpu_torch.ops import resblock_group as rg
+    from polgen_rvc_tpu_torch.ops import rnn
     from polgen_rvc_tpu_torch.ops import unet_chain as uc
     from polgen_rvc_tpu_torch.ops import viterbi as vt
 
     bf16 = torch.bfloat16
     out = {}
     calls = {name: calls.get(name, {}) for name in
-             ("resblock_group", "conv_transpose", "band_attention", "unet_chain", "viterbi")}
+             ("resblock_group", "conv_transpose", "band_attention", "unet_chain", "viterbi",
+              "gru_scan")}
 
     def rnd(t):
         return t.to(bf16).float()
@@ -881,7 +888,44 @@ def check_kernels(calls: dict) -> dict:
             torch.float32, 0, [t_len, bins, n, "random walk"],
             {"path_mismatches": int((got != ref).sum()),
              "distinct_bins": int(ref.unique().numel())})
+
+    for e in calls["gru_scan"].values():
+        x, params = e["args"]
+        b, t_len, n_in = x.shape
+        got = rnn.bigru(x, params)
+        ref = rnn.bigru_plain(x, params)
+        plain_ms = timed_once(lambda: rnn.bigru_plain(x, params))
+        lib_ms, lib_err = gru_library(x, params, got)
+        gx = rnn._project(x, params)
+        scan_ms = cuda_ms(lambda: rnn._scan(gx, params))
+        # the projection (6H x I a frame) and the recurrence (2 x 3H x H a
+        # step) in fp32; x, the weights and the output moved once
+        flops = 2.0 * b * t_len * 6 * 256 * (n_in + 256)
+        byts = nbytes(x, params["w_ih_cat"], params["b_gx"], params["w_hh_units"],
+                      params["b_hn"], got)
+        add("gru_scan", float((got - ref).abs().max()), 1e-5, ref,
+            cuda_ms(lambda: rnn.bigru(x, params)), plain_ms, lib_ms, flops, byts,
+            torch.float32, e["count"], [b, t_len, n_in],
+            {"scan_ms": scan_ms, "projection_ms": cuda_ms(lambda: rnn._project(x, params)),
+             "us_per_step": 1e3 * scan_ms / t_len, "cudnn_gru_max_abs_err": lib_err})
+        if not lib_err <= 1e-5:
+            raise AssertionError(f"gru_scan against cuDNN's nn.GRU: {lib_err} > 1e-5")
     return out
+
+
+def gru_library(x, params, got) -> tuple:
+    """torch.nn.GRU (cuDNN) on the same fp32 input and weights, the BiGRU
+    kernel's yardstick: its mean ms and its max abs difference from the
+    kernel's output. The port never calls it."""
+    import torch
+
+    gru = torch.nn.GRU(x.shape[-1], 256, batch_first=True, bidirectional=True,
+                       device=x.device)
+    with torch.no_grad():
+        for name, value in gru.named_parameters():
+            value.copy_(params[name.replace("weight", "w").replace("bias", "b")])
+        ms = cuda_ms(lambda: gru(x), reps=3)
+        return ms, float((gru(x)[0] - got).abs().max())
 
 
 def model_bytes(vc) -> int:
@@ -1032,11 +1076,13 @@ def padding_stays_zero(calls: dict) -> dict:
     return {"padded_stages": seen}
 
 
-def check_unet_launches(run: dict, path: str):
-    """One launch per 3x3 conv: 14 U-Net levels x 4 blocks x 2 convs."""
-    if run["launches"]["unet_chain"] != 112:
-        raise AssertionError(f"{path}: unet_chain launched "
-                             f"{run['launches']['unet_chain']} times, not 112")
+def check_rmvpe_launches(run: dict, path: str):
+    """RMVPE's kernels, one F0 pass: the U-Net chain once per 3x3 conv (14
+    levels x 4 blocks x 2 convs), the BiGRU scan once."""
+    got = run["launches"]["unet_chain"], run["launches"]["gru_scan"]
+    if got != (112, 1):
+        raise AssertionError(f"{path}: unet_chain and gru_scan launched {got} "
+                             "times, not 112 and 1")
 
 
 def chunk_spans(vc, plan) -> list:
@@ -1122,7 +1168,7 @@ def batch_phase(vc, song, opts, baseline, smi, seconds=BATCH_SONGS_S) -> list:
     conv_pre_ms = conv_pre_times(vc, sorted(set(batches)))
     b, n_songs = len(batches), len(songs)
     want = {"resblock_group": 36 * b, "conv_transpose": 4 * b, "band_attention": 6 * b,
-            "unet_chain": 112 * n_songs, "viterbi": 0}
+            "unet_chain": 112 * n_songs, "gru_scan": n_songs, "viterbi": 0}
     per_song = []
     for si, (plan, (out, sr), (ref, ref_sr)) in enumerate(zip(plans, packed, serial)):
         same = packed_bucket[si] == serial_bucket[si]
@@ -1211,7 +1257,8 @@ def mesh_run(label, mvc, song, opts, refs, baseline, smi, n_batches, bounds,
         return {"resblock_group": 36 * n_data * batches,
                 "conv_transpose": 4 * n_data * batches,
                 "band_attention": 6 * n_data * batches,
-                "unet_chain": 112 * songs_n if use_f0 else 0, "viterbi": 0}
+                "unet_chain": 112 * songs_n if use_f0 else 0,
+                "gru_scan": songs_n if use_f0 else 0, "viterbi": 0}
 
     parts = {}
     run = drive(mvc, song, opts, baseline)
@@ -1433,9 +1480,9 @@ def f0_file_phase(vc, song, opts, main_out, baseline, smi,
         raise AssertionError("f0_file: the overridden frames are not the file's")
     check_output(run, main_out.shape[0], "f0_file path",
                  launched=("resblock_group", "conv_transpose", "band_attention",
-                           "unet_chain"), idle=("viterbi",))
+                           "unet_chain", "gru_scan"), idle=("viterbi",))
     check_resblock_launches(run, "f0_file path")
-    check_unet_launches(run, "f0_file path")
+    check_rmvpe_launches(run, "f0_file path")
     if not run["repeatable"] or not result["differs_from_main"]:
         raise AssertionError(f"f0_file: repeatable {run['repeatable']}, "
                              f"differs from main {result['differs_from_main']}")
@@ -1514,7 +1561,7 @@ def checkpoint_phase(root, eng, song, opts, main_out, baseline, smi) -> dict:
         raise AssertionError("checkpoint: the converter loaded from files differs "
                              "from the synthetic one")
     missing = [k for k in ("resblock_group", "conv_transpose", "band_attention",
-                           "unet_chain") if launches[k] == 0]
+                           "unet_chain", "gru_scan") if launches[k] == 0]
     if missing:
         raise AssertionError(f"checkpoint: kernels never launched: {missing}")
     return result
@@ -1579,7 +1626,7 @@ def cli_phase(root, baseline, smi) -> dict:
             or not result["peak"] > 0.03:
         raise AssertionError(f"cli: output {y.shape} peak {result['peak']}")
     missing = [k for k in ("resblock_group", "conv_transpose", "band_attention",
-                           "unet_chain") if launches[k] == 0]
+                           "unet_chain", "gru_scan") if launches[k] == 0]
     if missing:
         raise AssertionError(f"cli: kernels never launched: {missing}")
     return result
@@ -1683,7 +1730,7 @@ def cover_phase(root, baseline, smi) -> dict:
             or not result["mix"]["peak"] > 0.03:
         raise AssertionError(f"cover: mix {result['mix']}")
     missing = [k for k in ("resblock_group", "conv_transpose", "band_attention",
-                           "unet_chain") if launches[k] == 0]
+                           "unet_chain", "gru_scan") if launches[k] == 0]
     if missing:
         raise AssertionError(f"cover: kernels never launched: {missing}")
     return result
@@ -1731,6 +1778,7 @@ def prewarm_child(mode: str, root: str) -> int:
     if mode == "warm":
         t0 = time.perf_counter()
         out["prewarm_returned"] = vc.prewarm(song, opts)
+        out["prewarm_kernels"] = list(vc.prewarm_kernels(opts))
         torch.cuda.synchronize()
         out["prewarm_s"] = time.perf_counter() - t0
         out["counts_after_prewarm"] = cuda_build.counts()
@@ -1750,10 +1798,12 @@ def prewarm_child(mode: str, root: str) -> int:
 
 def prewarm_phase(root, main_out, smi) -> dict:
     """Two fresh child processes on the checkpoint phase's files (see
-    prewarm_child): after prewarm, the warm child's converts build and load
-    no kernel; all four converts equal the main path's output byte for
-    byte. Prints the cold first convert's wall, the prewarmed first
-    convert's and the steady (second) converts' side by side."""
+    prewarm_child): prewarm loads the five kernel libraries of an rmvpe+
+    convert (the U-Net chain, the BiGRU scan, the synthesizer's three);
+    after it, the warm child's converts build and load no kernel; all four
+    converts equal the main path's output byte for byte. Prints the cold
+    first convert's wall, the prewarmed first convert's and the steady
+    (second) converts' side by side."""
     children = {}
     for mode in ("cold", "warm"):
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--prewarm-child",
@@ -1774,6 +1824,11 @@ def prewarm_phase(root, main_out, smi) -> dict:
               "builds_and_loads_after_prewarm": extra, "equal_to_main": equal,
               "card": smi}
     emit(result)
+    kernels = ["unet_chain", "gru_scan", "resblock_group", "conv_transpose",
+               "band_attention"]
+    if warm["prewarm_kernels"] != kernels or after["loads"] != len(kernels):
+        raise AssertionError(f"prewarm: kernels {warm['prewarm_kernels']}, "
+                             f"{after['loads']} libraries loaded, not {kernels}")
     if any(extra.values()):
         raise AssertionError(f"prewarm: converts after prewarm built or loaded kernels: "
                              f"{extra}")
@@ -1884,6 +1939,7 @@ def hosts_phase(root, batch_out, smi) -> dict:
             raise AssertionError(f"hosts: rank {r['rank']}'s host_sum {r['host_sum']}")
         got = r["launches"]
         if (got["unet_chain"] != 112 * len(r["songs"]) or got["viterbi"]
+                or got["gru_scan"] != len(r["songs"])
                 or got["resblock_group"] % 72 or got["conv_transpose"] % 8
                 or got["band_attention"] % 12 or not got["resblock_group"]
                 or got["resblock_group"] // 72 != got["conv_transpose"] // 8
@@ -2019,7 +2075,7 @@ def serve_phase(root, cover, baseline, smi) -> dict:
     if not result["mix_equals_cover"]:
         raise AssertionError("serve: /api/process differs from the cover phase's mix")
     missing = [k for k in ("resblock_group", "conv_transpose", "band_attention",
-                           "unet_chain") if launches[k] == 0]
+                           "unet_chain", "gru_scan") if launches[k] == 0]
     if missing:
         raise AssertionError(f"serve: kernels never launched: {missing}")
     return result
@@ -2147,10 +2203,10 @@ def main() -> int:
     emit({"phase": "profile", **{k: v for k, v in profile.items() if k != "kernels"},
           "top": profile["kernels"][:8]})
     check_output(run, expected, "main path",
-                 launched=(*synth_kernels, "unet_chain"), idle=("viterbi",))
+                 launched=(*synth_kernels, "unet_chain", "gru_scan"), idle=("viterbi",))
     launches = dict(run["launches"])
     check_resblock_launches(run, "main path")
-    check_unet_launches(run, "main path")
+    check_rmvpe_launches(run, "main path")
     if not run["repeatable"]:
         raise AssertionError("main path: two converts of the song differ")
 
@@ -2192,7 +2248,7 @@ def main() -> int:
           "top": cprofile["kernels"][:12],
           "slab_layers": crepe_layer_times(cvc.crepe_params, cvc.compute_dtype)})
     check_output(crun, expected, "mangio-crepe path",
-                 launched=(*synth_kernels, "viterbi"), idle=("unet_chain",))
+                 launched=(*synth_kernels, "viterbi"), idle=("unet_chain", "gru_scan"))
     if crun["launches"]["viterbi"] != 1:
         raise AssertionError(f"viterbi launched {crun['launches']['viterbi']} "
                              "times in one mangio-crepe convert, not once")
@@ -2233,7 +2289,7 @@ def main() -> int:
                             f0_profile["device_busy_ms"] / fprofile["device_busy_ms"],
                         "top": f0_profile["kernels"][:8]}})
     check_output(frun, expected, "fcpe path", launched=synth_kernels,
-                 idle=("unet_chain", "viterbi"))
+                 idle=("unet_chain", "gru_scan", "viterbi"))
     check_resblock_launches(frun, "fcpe path")
     check_convt_launches(frun, "fcpe path")
     del fvc, frun, fbuf
@@ -2255,7 +2311,7 @@ def main() -> int:
           "profile": {k: v for k, v in nprofile.items() if k != "kernels"},
           "top": nprofile["kernels"][:8], "card": smi})
     check_output(nrun, expected, "no-f0 path", launched=synth_kernels,
-                 idle=("unet_chain", "viterbi"))
+                 idle=("unet_chain", "gru_scan", "viterbi"))
     check_resblock_launches(nrun, "no-f0 path")
     check_convt_launches(nrun, "no-f0 path")
     if f0_passes or nvc.rmvpe_params is not None:
@@ -2285,11 +2341,11 @@ def main() -> int:
           "profile": {k: v for k, v in vprofile.items() if k != "kernels"},
           "top": vprofile["kernels"][:8], "card": smi})
     check_output(vrun, v_expected, "v1 32 kHz path",
-                 launched=(*synth_kernels, "unet_chain"), idle=("viterbi",),
+                 launched=(*synth_kernels, "unet_chain", "gru_scan"), idle=("viterbi",),
                  sample_rate=32000)
     check_resblock_launches(vrun, "v1 32 kHz path", stages=5)
     check_convt_launches(vrun, "v1 32 kHz path", stages=5)
-    check_unet_launches(vrun, "v1 32 kHz path")
+    check_rmvpe_launches(vrun, "v1 32 kHz path")
     if (vvc.version != "v1" or vvc.synth_cfg.input_dim != 256
             or list(vvc.synth_cfg.upsample_rates) != [10, 4, 2, 2, 2]
             or list(vvc.synth_cfg.upsample_kernel_sizes) != [16, 16, 4, 4, 4]):
@@ -2430,6 +2486,7 @@ def main() -> int:
         "band_attention": "polgen_rvc_tpu/ops/flash_relattn.py:128",
         "unet_chain": "polgen_rvc_tpu/ops/pallas_unet2d.py:216",
         "viterbi": "polgen_rvc_tpu/ops/pallas_viterbi.py:137",
+        "gru_scan": "none: the port's own (polgen_rvc_tpu/ops/rnn.py:67 bigru, a lax.scan)",
     }
     line = {"kernels": [
         {"name": name, "route": "cuda",

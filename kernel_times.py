@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the Viterbi (K6), band-attention (K4) and conv-transpose (K3)
-kernels alone on one card.
+"""Time the Viterbi (K6), band-attention (K4), conv-transpose (K3) and
+BiGRU-scan kernels alone on one card.
 
     python3 kernel_times.py [--reps 20]
 
@@ -12,7 +12,9 @@ length; K3 on bf16 x at the four upsample stages of the 48 kHz main path
 and the five of a v1 32 kHz model (u = 10, 4, 2, 2, 2; its second stage
 has padding 6 > stride, offsets -2..2, which a checkout that refuses it
 reports as null; its fifth is 16 wide, padded to 32 as the converter
-loads it). Prints one JSON line of device times (CUDA
+loads it); the BiGRU on fp32 x of (1, 7,200, 384), the frames of the
+60 s song's F0 pass, with cuDNN's nn.GRU on the same input and weights
+beside it (library_ms). Prints one JSON line of device times (CUDA
 events, mean over --reps calls after one warm-up), with the nvidia-smi
 name and power limit. It times only the public wrappers and, where the
 module has them, the launches inside a call, so that two checkouts can be
@@ -44,6 +46,40 @@ def viterbi_times(reps: int) -> dict:
         out.update(forward_ms=cuda_ms(lambda: vt._forward(lo, n), reps),
                    backpointers_ms=cuda_ms(lambda: vt._backpointers(rows, n), reps),
                    walk_ms=cuda_ms(lambda: vt._walk(rows, back, maps, t_len, n), reps))
+    return out
+
+
+# RMVPE's frames for the 60 s song: its 1,146,880-sample F0 buffer at hop
+# 160, padded to a multiple of 32
+GRU_FRAMES = 7200
+
+
+def gru_times(reps: int) -> dict:
+    from polgen_rvc_tpu_torch.ops import rnn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    gru = torch.nn.GRU(384, 256, batch_first=True, bidirectional=True, device="cuda")
+    params = {}
+    with torch.no_grad():
+        for name, value in gru.named_parameters():
+            fan = value.shape[-1] if value.dim() == 2 else 256
+            value.copy_(torch.from_numpy((rng.standard_normal(tuple(value.shape))
+                                          / np.sqrt(fan)).astype(np.float32)))
+            params[name.replace("weight", "w").replace("bias", "b")] = value.detach()
+    x = torch.from_numpy((rng.standard_normal((1, GRU_FRAMES, 384)) * 0.5
+                          ).astype(np.float32)).cuda()
+    if hasattr(rnn, "pack_gru_weights"):
+        params = rnn.pack_gru_weights(params)
+    with torch.no_grad():
+        out = {"frames": GRU_FRAMES, "ms": cuda_ms(lambda: rnn.bigru(x, params), reps),
+               "library_ms": cuda_ms(lambda: gru(x), reps)}
+    if hasattr(rnn, "_scan"):
+        gx = rnn._project(x, params)
+        out.update(projection_ms=cuda_ms(lambda: rnn._project(x, params), reps),
+                   scan_ms=cuda_ms(lambda: rnn._scan(gx, params), reps))
+        out["us_per_step"] = 1e3 * out["scan_ms"] / GRU_FRAMES
     return out
 
 
@@ -121,7 +157,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(json.dumps({"card": smi, "viterbi": viterbi_times(args.reps),
                       "band_attention": band_attention_times(args.reps),
-                      "conv_transpose": conv_transpose_times(args.reps)}), flush=True)
+                      "conv_transpose": conv_transpose_times(args.reps),
+                      "gru": gru_times(args.reps)}), flush=True)
     return 0
 
 

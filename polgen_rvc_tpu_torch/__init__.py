@@ -8,7 +8,7 @@ own copy of every helper it needs.
 
 Layer map (mirrors the JAX package so each counterpart is easy to find):
     ops/        torch-semantics convs, STFT/mel, GRU, F0 decode, high-pass,
-                and the five hand-written CUDA kernels with their plain twins
+                and the six hand-written CUDA kernels with their plain twins
     csrc/       the kernels' CUDA C++ sources, built with nvcc at first use
     models/     synthesizer / NSF decoder / HuBERT / RMVPE / CREPE / FCPE and
                 the HiFi-GAN discriminators as functions of parameter

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from ..ops.audio import log_mel_spectrogram, mel_filterbank
 from ..ops.conv import conv2d, conv_transpose2d
-from ..ops.rnn import bigru
+from ..ops.rnn import bigru, pack_gru_weights
 from ..ops.unet_chain import convblock_chain, pack_unet_weights
 from ..utils.tracing import spanned
 
@@ -52,12 +52,14 @@ def pad_frames_to_32(mel):
 
 
 def pack_rmvpe_weights(params):
-    """The U-Net's parameters with the chain kernel's weight layouts added
-    (pack_unet_weights), made once when the weights load."""
+    """The parameters with the kernels' weight layouts added, made once when
+    the weights load: the U-Net chain's (pack_unet_weights) and the BiGRU
+    scan's (pack_gru_weights)."""
     out = dict(params)
     for part in ("encoder", "intermediate", "decoder"):
         out[part] = [{**lvl, "blocks": pack_unet_weights(lvl["blocks"])}
                      for lvl in params[part]]
+    out["gru"] = pack_gru_weights(params["gru"])
     return out
 
 

@@ -23,8 +23,8 @@ from ..utils.tracing import spanned
 from .config import ConversionOptions
 
 SYNTH_KERNELS = ("resblock_group", "conv_transpose", "band_attention")
-F0_KERNELS = {"rmvpe+": ("unet_chain",), "rmvpe": ("unet_chain",),
-              "mangio-crepe": ("viterbi",)}
+RMVPE_KERNELS = ("unet_chain", "gru_scan")
+F0_KERNELS = {"rmvpe+": RMVPE_KERNELS, "rmvpe": RMVPE_KERNELS, "mangio-crepe": ("viterbi",)}
 
 
 class PrewarmMixin:
@@ -32,8 +32,9 @@ class PrewarmMixin:
 
     def prewarm_kernels(self, opts: ConversionOptions) -> tuple:
         """The kernels a convert with these options launches: the
-        synthesizer's three always, RMVPE's U-Net chain for rmvpe+ and
-        rmvpe, the Viterbi decode for mangio-crepe (f0 models only)."""
+        synthesizer's three always, RMVPE's U-Net chain and BiGRU scan for
+        rmvpe+ and rmvpe, the Viterbi decode for mangio-crepe (f0 models
+        only)."""
         f0 = F0_KERNELS.get(opts.f0_method, ()) if self.synth_cfg.use_f0 else ()
         return f0 + SYNTH_KERNELS
 

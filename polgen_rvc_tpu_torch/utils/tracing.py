@@ -20,6 +20,8 @@ Counters. A registry of plain integers of the process, read with
                       synthesizer frames (pipeline/engine.py)
     frames_valid      the sum of those rows' valid frames
     launches.<kernel> launches of each hand-written kernel (ops/)
+    gru_steps         steps of the BiGRU scan kernel: batch rows x frames
+                      x 2 directions a launch (ops/rnn.py)
     kernel_builds     kernel libraries compiled with nvcc (ops/cuda_build.py)
     kernel_loads      kernel libraries loaded with ctypes
 

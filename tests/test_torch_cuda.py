@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from polgen_rvc_tpu_torch.ops import band_attention as ba
 from polgen_rvc_tpu_torch.ops import conv_transpose as ct
 from polgen_rvc_tpu_torch.ops import resblock_group as rg
+from polgen_rvc_tpu_torch.ops import rnn
 from polgen_rvc_tpu_torch.ops import unet_chain as uc
 from polgen_rvc_tpu_torch.ops import viterbi as vt
 
@@ -485,6 +486,144 @@ def test_viterbi_rejects(dev, bad):
           "non-contiguous": lambda: torch.zeros(360, 8, device=dev).T}[bad]()
     with pytest.raises(ValueError):
         vt.viterbi_path(lo, 8)
+
+
+@pytest.fixture
+def full_fp32():
+    """fp32 matrix products and cuDNN calls without TF32, as the port's
+    entry points set them (resolve_device): for the GRU's projection and
+    the cuDNN yardstick."""
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def _gru_params(rng, dev):
+    """RMVPE's BiGRU (384 -> 2 x 256) in torch's layout, fan-in scaled."""
+    out = {}
+    for suffix in ("", "_reverse"):
+        out["w_ih_l0" + suffix] = _t(rng.standard_normal((768, 384)) / np.sqrt(384), dev)
+        out["w_hh_l0" + suffix] = _t(rng.standard_normal((768, 256)) / np.sqrt(256), dev)
+        out["b_ih_l0" + suffix] = _t(rng.standard_normal(768) * 0.02, dev)
+        out["b_hh_l0" + suffix] = _t(rng.standard_normal(768) * 0.02, dev)
+    return out
+
+
+def _cudnn_gru(params, x):
+    """torch.nn.GRU (cuDNN on the card) with the same weights: the yardstick."""
+    gru = torch.nn.GRU(384, 256, batch_first=True, bidirectional=True, device=x.device)
+    with torch.no_grad():
+        for name, value in gru.named_parameters():
+            value.copy_(params[name.replace("weight", "w").replace("bias", "b")])
+        return gru(x)[0]
+
+
+@pytest.mark.parametrize("t", [1, 2, 33, 1056, 24032])
+@pytest.mark.parametrize("b", [1, 2])
+def test_gru_scan_kernel(dev, full_fp32, t, b):
+    """The BiGRU kernel against its plain twin on the card and against
+    cuDNN's nn.GRU, every value of both directions: fp32 throughout, only
+    the summation order of the 256-term dot products differs (|h| <= 1).
+    24,032 frames: a 240 s song's F0 pass."""
+    rng = np.random.default_rng(10 * t + b)
+    params = _gru_params(rng, dev)
+    packed = rnn.pack_gru_weights(params)
+    x = _t(rng.standard_normal((b, t, 384)) * 0.5, dev)
+    got, n = _launched("gru_scan", lambda: rnn.bigru(x, packed))
+    assert n == 1 and got.shape == (b, t, 512) and got.dtype == torch.float32
+    twin = rnn.bigru_plain(x, params)
+    assert float((got - twin).abs().max()) <= 1e-5
+    assert float((got - _cudnn_gru(params, x)).abs().max()) <= 1e-5
+
+
+def test_gru_scan_counts_its_launch_and_steps(dev, full_fp32):
+    """One launches.gru_scan and 2 x B x T gru_steps a call."""
+    from polgen_rvc_tpu_torch.utils.tracing import counters
+
+    rng = np.random.default_rng(2)
+    packed = rnn.pack_gru_weights(_gru_params(rng, dev))
+    for b, t in ((1, 300), (2, 77)):
+        x = _t(rng.standard_normal((b, t, 384)), dev)
+        before = counters()
+        rnn.bigru(x, packed)
+        torch.cuda.synchronize()
+        after = counters()
+        assert after["launches.gru_scan"] - before.get("launches.gru_scan", 0) == 1
+        assert after["gru_steps"] - before.get("gru_steps", 0) == 2 * b * t
+
+
+@pytest.mark.parametrize("bad", ["float64 x", "383 wide", "non-contiguous x",
+                                 "unpacked weights", "weights on the CPU",
+                                 "bf16 W_hh"])
+def test_gru_scan_rejects(dev, bad):
+    rng = np.random.default_rng(4)
+    params = _gru_params(rng, dev)
+    packed = rnn.pack_gru_weights(params)
+    x = _t(rng.standard_normal((1, 40, 384)), dev)
+    if bad == "float64 x":
+        x = x.double()
+    elif bad == "383 wide":
+        x = x[..., :383].contiguous()
+    elif bad == "non-contiguous x":
+        x = _t(rng.standard_normal((1, 80, 384)), dev)[:, ::2]
+    elif bad == "unpacked weights":
+        packed = params
+    elif bad == "weights on the CPU":
+        packed = rnn.pack_gru_weights({k: v.cpu() for k, v in params.items()})
+    else:
+        packed = {**packed, "w_hh_units": packed["w_hh_units"].to(torch.bfloat16)}
+    with pytest.raises(ValueError):
+        rnn.bigru(x, packed)
+
+
+def test_gru_scan_on_a_side_stream(dev, full_fp32):
+    """Launched while a side stream is current, the BiGRU kernel (and its
+    projection) run on that stream, while a sleep holds the default stream:
+    the result is ready before the sleep ends and matches the twin."""
+    rng = np.random.default_rng(5)
+    params = _gru_params(rng, dev)
+    packed = rnn.pack_gru_weights(params)
+    x = _t(rng.standard_normal((1, 500, 384)) * 0.5, dev)
+    rnn.bigru(x, packed)  # the library loaded before the timed part
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=dev)
+    torch.cuda._sleep(2_000_000_000)  # ~1 s on the default stream
+    with torch.cuda.stream(side):
+        got = rnn.bigru(x, packed)
+        done = torch.cuda.Event()
+        done.record(side)
+    done.synchronize()
+    assert not torch.cuda.default_stream(dev).query(), "the sleep ended first"
+    torch.cuda.synchronize()
+    assert float((got - rnn.bigru_plain(x, params)).abs().max()) <= 1e-5
+
+
+def test_card_convert_never_reaches_cudnn_rnn(dev, monkeypatch):
+    """A tiny rmvpe+ convert on the card with torch.nn.GRU and torch's GRU
+    op patched to raise: it runs, launches the BiGRU kernel once, and its
+    profile holds no cuDNN RNN kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch's GRU was called on the card")
+
+    monkeypatch.setattr(torch.nn.GRU, "__init__", refuse)
+    monkeypatch.setattr(torch.nn.GRU, "forward", refuse)
+    monkeypatch.setattr(torch, "gru", refuse)
+    monkeypatch.setattr(torch._VF, "gru", refuse)
+    vc = _tiny_converter(device=dev)
+    opts = ConversionOptions(index_rate=0.5, protect=0.33, volume_envelope=0.25)
+    vc.convert(_mesh_song(), opts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        (out, _), n = _launched("gru_scan", lambda: vc.convert(_mesh_song(), opts))
+    assert n == 1 and out.size and np.abs(out.astype(np.int32)).max() > 0
+    names = [e.key for e in prof.key_averages()]
+    assert names and not [k for k in names if "rnn" in k.lower()]
 
 
 @pytest.mark.parametrize("c_in,c_out,t,w", [(512, 256, 225, 4), (64, 32, 1800, 32)])

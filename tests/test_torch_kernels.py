@@ -28,6 +28,7 @@ from polgen_rvc_tpu.ops.pallas_resblock import (
     fused_resblock_group_folded as jax_group_folded,
 )
 from polgen_rvc_tpu.ops.pallas_unet2d import fused_convblock_chain_folded
+from polgen_rvc_tpu.ops.rnn import bigru as jax_bigru
 from polgen_rvc_tpu_torch.convert.params import params_to_torch
 from polgen_rvc_tpu_torch.models.synthesizer import relative_attention
 from polgen_rvc_tpu_torch.ops.band_attention import band_attention_plain
@@ -38,6 +39,7 @@ from polgen_rvc_tpu_torch.ops.resblock_group import (
     fused_resblock_group, pack_resblock_weights, resblock_group_plain,
     resblock_pair_plain,
 )
+from polgen_rvc_tpu_torch.ops.rnn import bigru, bigru_plain, gru_scan, pack_gru_weights
 from polgen_rvc_tpu_torch.ops.unet_chain import (
     convblock_chain, convblock_chain_plain, pack_taps_3x3, pack_unet_weights,
     padded_channels, unet_conv3x3_plain,
@@ -605,6 +607,24 @@ def _bad_unet_chain():
     convblock_chain(torch.zeros(1, 2, 4, 8), [blk])  # no 1x1 shortcut for 2 -> 16
 
 
+def _bad_bigru_width():
+    params = pack_gru_weights(_gru_params(np.random.default_rng(0)))
+    gru_scan(torch.zeros(1, 4, 383), params)  # RMVPE's input is 384 wide
+
+
+def _bad_bigru_dtype():
+    params = pack_gru_weights(_gru_params(np.random.default_rng(0)))
+    gru_scan(torch.zeros(1, 4, 384, dtype=torch.float64), params)
+
+
+def _bad_bigru_unpacked():
+    gru_scan(torch.zeros(1, 4, 384), _gru_params(np.random.default_rng(0)))
+
+
+def _bad_bigru_device():
+    bigru(torch.zeros(1, 4, 384, device="meta"), {})
+
+
 def _bad_viterbi_bins():
     from polgen_rvc_tpu_torch.ops.viterbi import viterbi_path
     viterbi_path(torch.zeros(8, 361), 8)
@@ -628,9 +648,87 @@ def _bad_viterbi_width():
 @pytest.mark.parametrize("call", [_bad_resblock, _bad_conv_transpose,
                                   _bad_band_attention, _bad_unet_chain,
                                   _bad_viterbi_bins, _bad_viterbi_dtype,
-                                  _bad_viterbi_layout, _bad_viterbi_width])
+                                  _bad_viterbi_layout, _bad_viterbi_width,
+                                  _bad_bigru_width, _bad_bigru_dtype,
+                                  _bad_bigru_unpacked, _bad_bigru_device])
 def test_kernel_wrappers_reject_shapes_that_do_not_fit(call):
     """Shapes are checked before any dispatch: the kernels take raw
     pointers, so a mismatch must raise rather than read out of bounds."""
     with pytest.raises(ValueError):
         call()
+
+
+def _gru_params(rng, hidden=256, inputs=384):
+    """RMVPE's BiGRU in torch's layout (fan-in scaled, as the benchmark's
+    random weights), torch tensors."""
+    out = {}
+    for suffix in ("", "_reverse"):
+        for name, shape, fan in (("w_ih_l0", (3 * hidden, inputs), inputs),
+                                 ("w_hh_l0", (3 * hidden, hidden), hidden)):
+            out[name + suffix] = torch.from_numpy(
+                (rng.standard_normal(shape) / np.sqrt(fan)).astype(np.float32))
+        for name in ("b_ih_l0", "b_hh_l0"):
+            out[name + suffix] = torch.from_numpy(
+                (rng.standard_normal(3 * hidden) * 0.02).astype(np.float32))
+    return out
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("t", [1, 33, 1056])
+@pytest.mark.parametrize("b", [1, 2])
+def test_bigru_plain_matches_jax_scan(one_thread, t, b):
+    """The twin against the JAX package's lax.scan BiGRU, fp32 on both
+    sides: the same gate arithmetic, only the fp32 summation order of the
+    256- and 384-term dot products differs (|h| <= 1)."""
+    rng = np.random.default_rng(100 * t + b)
+    params = _gru_params(rng)
+    x = (rng.standard_normal((b, t, 384)) * 0.5).astype(np.float32)
+    got = bigru_plain(torch.from_numpy(x), params)
+    want = np.asarray(jax_bigru(jnp.asarray(x),
+                                {k: jnp.asarray(v.numpy()) for k, v in params.items()}))
+    assert got.shape == (b, t, 512) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("t,b", [(1, 1), (33, 2), (1056, 1)])
+def test_bigru_plain_matches_torch_gru(one_thread, t, b):
+    """The twin against torch.nn.GRU(bidirectional=True) on the CPU with the
+    same weights; the CPU path of bigru is the twin."""
+    rng = np.random.default_rng(7 * t + b)
+    params = _gru_params(rng)
+    gru = torch.nn.GRU(384, 256, batch_first=True, bidirectional=True)
+    with torch.no_grad():
+        for name, value in gru.named_parameters():
+            value.copy_(params[name.replace("weight", "w").replace("bias", "b")])
+        x = torch.from_numpy((rng.standard_normal((b, t, 384)) * 0.5).astype(np.float32))
+        want, _ = gru(x)
+    got = bigru(x, pack_gru_weights(params))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_pack_gru_weights_layout():
+    """The kernel's layouts round-trip to torch's: w_hh_units back to
+    weight_hh_l0{,_reverse}; w_ih_cat and b_gx, b_hn as documented."""
+    params = _gru_params(np.random.default_rng(3))
+    packed = pack_gru_weights(params)
+    assert packed["w_hh_units"].shape == (2, 256, 3, 256)
+    assert packed["w_hh_units"].is_contiguous()
+    for d, suffix in enumerate(("", "_reverse")):
+        back = packed["w_hh_units"][d].permute(1, 0, 2).reshape(768, 256)
+        assert torch.equal(back, params["w_hh_l0" + suffix])
+        assert torch.equal(packed["w_ih_cat"][:, 768 * d:768 * (d + 1)].t(),
+                           params["w_ih_l0" + suffix])
+        b_ih, b_hh = params["b_ih_l0" + suffix], params["b_hh_l0" + suffix]
+        gates = packed["b_gx"][768 * d:768 * (d + 1)]
+        assert torch.equal(gates[:512], b_ih[:512] + b_hh[:512])
+        assert torch.equal(gates[512:], b_ih[512:] + 0.0)
+        assert torch.equal(packed["b_hn"][d], b_hh[512:])
+    for name, value in params.items():  # the torch layouts stay beside them
+        assert packed[name] is value
