@@ -2,11 +2,14 @@
 benchmark's own runs: the reference put in the program's place, computed
 one precision step below the configuration's bf16 (fp8 e4m3 operands,
 reference/ops.py), judged as a run judges the program's outputs: its F0
-track against the reference's own, and its audio against the reference
-(synthesizing from the control's F0 track where the configuration's
-judge takes the program's).
+track against the reference's own, or stage by stage where the F0 module
+has checks, and its audio against the reference (synthesizing from the
+control's F0 track where the configuration's judge takes the program's).
+``--operand bf16_decode`` gives the control of the F0 decode instead:
+products as stated, the decode's operands in bf16.
 
-    python3 benchmark/control.py --workload <name> --seeds 1,2,3 [--program] [--out FILE]
+    python3 benchmark/control.py --workload <name> --seeds 1,2,3 [--operand fp8|bf16_decode]
+        [--program] [--out FILE]
 
 For each seed: the weights and the inputs a run with that seed makes, the
 cell's compared sample (the longest item and compare_calls - 1 more drawn
@@ -40,8 +43,9 @@ def control_readings(workload: str, seed: int, device, operand: str = "fp8") -> 
 def judge_control(config: dict, traffic: dict, seed: int, device, operand: str = "fp8") -> dict:
     import numpy as np
 
-    from benchmark.reference.convert import reference_convert
-    from benchmark.reference.f0 import f0_cents_mean, f0_mismatch_pct
+    from benchmark.f0 import model as f0_model
+    from benchmark.reference.convert import padded_buffer, reference_convert, stated_ops
+    from benchmark.reference.f0 import f0_mismatch_pct
     from benchmark.reference.melcmp import mel_distortion_parts
     from benchmark.reference.ops import Ops, full_precision
     from benchmark.reference.signal import Engine
@@ -62,6 +66,7 @@ def judge_control(config: dict, traffic: dict, seed: int, device, operand: str =
     opts = {**config["options"], "speaker_id": 0}
     engine = Engine(**config["engine"])
     from_program = config.get("judge", {}).get("f0_track") == "program"
+    model = f0_model(config)
     per_item, mel_sum, mel_count = [], 0.0, 0
     for i in items:
         x = inputs.signal(i, 0)
@@ -72,15 +77,20 @@ def judge_control(config: dict, traffic: dict, seed: int, device, operand: str =
         frames = (len(x) + 2 * engine.t_pad) // engine.window
         total, count = mel_distortion_parts(ctl, ref, sr)
         mel_sum, mel_count = mel_sum + total, mel_count + count
-        per_item.append({"length_s": inputs.lengths[i], "mel_db": total / count,
-                         "f0_mismatch_pct": (0.0 if ctl_f0 is None else
-                                             f0_mismatch_pct(ctl_f0, ref_f0, frames)),
-                         "f0_cents_mean": (0.0 if ctl_f0 is None else
-                                           f0_cents_mean(ctl_f0, ref_f0, frames)),
-                         "length_diff": abs(len(ctl) - len(ref))})
+        item = {"length_s": inputs.lengths[i], "mel_db": total / count,
+                "f0_mismatch_pct": (0.0 if ctl_f0 is None else
+                                    f0_mismatch_pct(ctl_f0, ref_f0, frames)),
+                "length_diff": abs(len(ctl) - len(ref))}
+        if ctl_f0 is not None and hasattr(model, "checks"):
+            state = weights[config["f0_model"]]
+            buf, padded_len = padded_buffer(x, engine, device)
+            mid = model.intermediate(state, config, buf, padded_len, opts, Ops(operand))
+            item.update(model.checks(state, config, buf, padded_len, opts, stated_ops(config),
+                                     ctl_f0, mid, frames))
+        per_item.append(item)
+    names = [k for k in per_item[0] if k not in ("length_s", "mel_db")]
     return {"seed": seed, "operand": operand, "mel_db": mel_sum / mel_count,
-            **{k: max(p[k] for p in per_item)
-               for k in ("f0_mismatch_pct", "f0_cents_mean", "length_diff")},
+            **{k: max(p[k] for p in per_item) for k in names},
             "items": per_item}
 
 
@@ -109,6 +119,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True)
+    ap.add_argument("--operand", default="fp8", choices=("fp8", "bf16_decode"))
     ap.add_argument("--program", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args()
@@ -118,7 +129,8 @@ def main() -> int:
     lines = []
     for seed in (int(s) for s in args.seeds.split(",")):
         line = (program_readings(args.workload, seed) if args.program
-                else control_readings(args.workload, seed, torch.device("cuda", 0)))
+                else control_readings(args.workload, seed, torch.device("cuda", 0),
+                                      args.operand))
         print(json.dumps(line), flush=True)
         lines.append(line)
     if args.out:

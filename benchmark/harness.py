@@ -35,9 +35,9 @@ import types
 
 import numpy as np
 
-from . import program, spec
-from .reference.convert import reference_convert
-from .reference.f0 import f0_cents_mean, f0_mismatch_pct
+from . import f0, program, spec
+from .reference.convert import padded_buffer, reference_convert, stated_ops
+from .reference.f0 import f0_mismatch_pct
 from .reference.melcmp import mel_distortion_parts
 from .reference.ops import full_precision
 from .reference.signal import Engine
@@ -47,6 +47,7 @@ from .work import Window, call_geometry, song_geometry
 
 TRACE_SECONDS = 5.0   # the traced window's least length
 FORBIDDEN = ("jax", "jaxlib", "flax", "polgen_rvc_tpu")
+GENERIC_CHECKS = {"mel_db", "f0_mismatch_pct", "length_diff"}
 
 
 class Failure(RuntimeError):
@@ -66,14 +67,15 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _cycles(vc, inputs, traffic, opts, device, seconds, reps, tap=False):
+def _cycles(vc, inputs, traffic, opts, device, seconds, reps, tap=None):
     """Whole cycles of calls until `seconds` have passed; returns the calls
-    [(items, reps, start, end, outputs or None, F0 tracks)] and the wall
-    seconds. With tap, each call keeps the F0 tracks its songs' F0 passes
-    made (program.f0_tap), for the judge."""
+    [(items, reps, start, end, outputs or None, F0 taps)] and the wall
+    seconds. With tap (the configuration), each call keeps, for the judge,
+    what its songs' F0 passes made (program.f0_tap): per song the F0 track
+    and the F0 module's intermediate."""
     call = program.entry(vc, traffic["entry"])
     calls, sink = [], []
-    with program.f0_tap(sink) if tap else contextlib.nullcontext():
+    with program.f0_tap(sink, tap) if tap is not None else contextlib.nullcontext():
         t0 = time.perf_counter()
         while True:
             for group in inputs.cycle():
@@ -160,7 +162,7 @@ def run_cell(workload: str, *, bench: dict, config: dict, traffic: dict, limits:
 
     # ---------------- the timed window ----------------
     reps = [0] * len(inputs.items)
-    calls, wall = _cycles(vc, inputs, traffic, opts, device, seconds, reps, tap=True)
+    calls, wall = _cycles(vc, inputs, traffic, opts, device, seconds, reps, tap=config)
     if program.kernel_counts() != counts:
         raise Failure(f"kernel libraries built or loaded inside the window: "
                       f"{counts} -> {program.kernel_counts()}")
@@ -260,13 +262,16 @@ def compare(calls, inputs, config, traffic, limits, seed, device) -> dict:
     judge says "f0_track": "program", the reference's synthesizer reads
     the F0 track the program's pass made (a random-weight RMVPE's argmax
     is decided by rounding, reference/convert.py) and the F0 pass is judged
-    by itself. The numbers the cell's limits name, each the worst over the
-    songs, beside its limit:
+    by itself, or, where the F0 module has checks of its own, stage by
+    stage (f0/__init__.py). The numbers the cell's limits name, each the
+    worst over the songs, beside its limit:
       mel_db          mel distortion (dB) of the program's int16 output
                       against the reference's
       f0_mismatch_pct frames (%) where the program's F0 and the
                       reference's disagree: voicing, or > 50 cents
-      length_diff     largest difference in output samples"""
+      length_diff     largest difference in output samples
+    and the F0 module's checks (CREPE: salience_rel_err,
+    f0_decode_cents_max)."""
     done = [k for k, c in enumerate(calls) if c[4] is not None]
     worst = dict.fromkeys(limits, 0.0 if done else float("inf"))
     if done:
@@ -280,21 +285,32 @@ def compare(calls, inputs, config, traffic, limits, seed, device) -> dict:
         sr = config["synthesizer"]["config"][17]
         opts = {**config["options"], "speaker_id": 0}
         from_program = config.get("judge", {}).get("f0_track") == "program"
+        model = f0.model(config)
+        stages = getattr(model, "checks", None)
         mel_sum = mel_count = 0.0
         for k in picked:
-            items, used, _, _, outs, f0s = calls[k]
-            for i, r, got, f0 in zip(items, used, outs, f0s):
+            items, used, _, _, outs, taps = calls[k]
+            for i, r, got, (f0_track, mid) in zip(items, used, outs, taps):
                 x = inputs.signal(i, r)
                 ref, ref_f0 = reference_convert(weights, config, x, opts, seed, device,
-                                                f0_track=f0 if from_program else None)
+                                                f0_track=f0_track if from_program else None)
                 total, count = mel_distortion_parts(got, ref, sr)
                 mel_sum, mel_count = mel_sum + total, mel_count + count
                 worst["length_diff"] = max(worst["length_diff"], float(abs(len(ref) - len(got))))
                 frames = (len(x) + 2 * engine.t_pad) // engine.window
-                for name, fn in (("f0_mismatch_pct", f0_mismatch_pct),
-                                 ("f0_cents_mean", f0_cents_mean)):
-                    if name in limits:
-                        worst[name] = max(worst[name], fn(f0, ref_f0, frames))
+                if "f0_mismatch_pct" in limits:
+                    worst["f0_mismatch_pct"] = max(worst["f0_mismatch_pct"],
+                                                   f0_mismatch_pct(f0_track, ref_f0, frames))
+                if stages is not None:
+                    if mid is None:   # the pass handed its last stage nothing the tap caught
+                        found = dict.fromkeys(set(limits) - GENERIC_CHECKS, float("inf"))
+                    else:
+                        buf, padded_len = padded_buffer(x, engine, device)
+                        found = stages(weights[config["f0_model"]], config, buf, padded_len,
+                                       opts, stated_ops(config), f0_track, mid, frames)
+                    for name, value in found.items():
+                        if name in limits:
+                            worst[name] = max(worst[name], value)
         worst["mel_db"] = mel_sum / mel_count
     return {name: {"value": value, "limit": limits[name]["limit"]}
             for name, value in worst.items()}

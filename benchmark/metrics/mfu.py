@@ -10,55 +10,14 @@ butterflies and the top-k are left out.
 Precisions, as the port runs them: HuBERT, enc_p, the flow, the decoder,
 RMVPE's U-Net 3x3 chains and CREPE's convs in bf16; the retrieval
 distances, RMVPE's transposed convs, head, BiGRU and classifier, the mel
-filterbank and CREPE's classifier in fp32."""
+filterbank and CREPE's classifier in fp32. The F0 pass's count is its
+model's own (``flops`` of its module in ``benchmark/f0/``)."""
 
 import math
 
-from benchmark import peaks
+from benchmark import f0, peaks
 from benchmark.reference.signal import hubert_frames
 from benchmark.work import chunk_frames, chunks
-
-N_BLOCKS = 4
-
-
-def _rmvpe(n: float) -> dict:
-    """RMVPE on n frames: {dtype: operations}."""
-    bf = fp = 0.0
-    levels = []
-    c_in, c = 1, 16
-    for i in range(5):
-        levels.append((c_in, c, n / 2 ** i, 128 / 2 ** i))
-        c_in, c = c, c * 2
-    for i in range(4):
-        levels.append((256 if i == 0 else 512, 512, n / 32, 4))
-    c = 512
-    for i in range(5):
-        oc = c // 2
-        t_in, w_in = n / 2 ** (5 - i), 4 * 2 ** i
-        fp += 2 * 9 * c * oc * t_in * w_in                 # transposed conv
-        levels.append((2 * oc, oc, n / 2 ** (4 - i), 8 * 2 ** i))
-        c = oc
-    for c_in, c, t, w in levels:
-        for j in range(N_BLOCKS):
-            cin = c_in if j == 0 else c
-            bf += 2 * 9 * (cin * c + c * c) * t * w
-            if cin != c:
-                bf += 2 * cin * c * t * w
-    fp += 2 * 9 * 16 * 3 * n * 128                            # head conv
-    fp += n * 2 * 2 * 3 * 256 * (384 + 256)                   # BiGRU
-    fp += n * (2 * 512 * 360 + 2 * 128 * 513)                 # classifier, mel basis
-    return {"bfloat16": bf, "float32": fp}
-
-
-def _crepe(n: float, layers) -> dict:
-    """CREPE on n frames of 1024 samples."""
-    bf, positions, c_in = 0.0, 1024, 1
-    for c_out, k, stride, pt, pb in layers:
-        out = (positions + pt + pb - k) // stride + 1
-        bf += 2 * c_out * c_in * k * out
-        positions, c_in = out // 2, c_out
-    return {"bfloat16": n * bf, "float32": n * 2 * positions * c_in * 360}
-
 
 def _hubert(samples: int, h: dict, layers: int, final_proj: bool) -> float:
     t, in_c, f = samples, 1, 0.0
@@ -105,16 +64,11 @@ def flops(config, engine, window) -> dict:
     content = h["final_dim"] if v1 else h["embed_dim"]
     layers = 9 if (v1 and h["n_layers"] >= 9) else h["n_layers"]
     out = {"bfloat16": 0.0, "float32": 0.0}
-    for song in window.songs:
-        if not use_f0:
-            continue
-        if config.get("f0_model") == "crepe":
-            part = _crepe(song["padded_len"] // int(opts["hop_length"]) + 1,
-                          config["crepe"]["layers"])
-        else:
-            part = _rmvpe(song["padded_len"] // engine.window + 1)
-        for k, v in part.items():
-            out[k] += v
+    if use_f0:
+        f0_model = f0.find(config["f0_model"])
+        for song in window.songs:
+            for k, v in f0_model.flops(config, engine, song["padded_len"]).items():
+                out[k] += v
     use_index = config.get("index_vectors", 0) and opts["index_rate"] > 0
     for length in chunks(window):
         v = chunk_frames(length, config, engine)

@@ -8,11 +8,11 @@ import contextlib
 
 import numpy as np
 
+from . import f0
+
 
 def build_converter(weights: dict, config: dict, device):
-    from polgen_rvc_tpu_torch.convert.crepe_ckpt import convert_crepe_state
     from polgen_rvc_tpu_torch.convert.hubert_ckpt import convert_hubert_state
-    from polgen_rvc_tpu_torch.convert.rmvpe_ckpt import convert_rmvpe_state
     from polgen_rvc_tpu_torch.convert.rvc_ckpt import build_config, convert_synthesizer_state
     from polgen_rvc_tpu_torch.models.hubert import HubertConfig
     from polgen_rvc_tpu_torch.pipeline.config import EngineConfig
@@ -29,13 +29,15 @@ def build_converter(weights: dict, config: dict, device):
         ffn_dim=h["ffn_dim"], n_heads=h["n_heads"], n_layers=h["n_layers"],
         pos_conv_kernel=h["pos_conv_kernel"], pos_conv_groups=h["pos_conv_groups"],
         final_dim=h["final_dim"])
+    f0_model = f0.model(config)
+    f0_params = ({} if f0_model is None
+                 else f0_model.program_params(weights[config["f0_model"]], config))
     bank = weights.get("index")
     return VoiceConverter(
         synth_cfg=synth_cfg,
         synth_params=convert_synthesizer_state(weights["rvc"], synth_cfg),
         hubert_cfg=hub_cfg, hubert_params=convert_hubert_state(weights["hubert"], hub_cfg),
-        rmvpe_params=(convert_rmvpe_state(weights["rmvpe"]) if "rmvpe" in weights else None),
-        crepe_params=(convert_crepe_state(weights["crepe"]) if "crepe" in weights else None),
+        **f0_params,
         index_bank=None if bank is None else np.ascontiguousarray(bank.cpu().numpy()),
         engine=EngineConfig(**config["engine"]), device=device)
 
@@ -58,18 +60,22 @@ def entry(vc, name: str):
 
 
 @contextlib.contextmanager
-def f0_tap(sink: list):
-    """While open, every VoiceConverter._prepare_song appends the song's
-    shifted F0 track (its ``pitchf``, None without F0) to sink: the state
-    the reference's synthesizer reads in the judge. Keeps a reference to
-    the tensor, no copy."""
+def f0_tap(sink: list, config: dict):
+    """While open, every VoiceConverter._prepare_song appends to sink the
+    pair (the song's shifted F0 track, its ``pitchf``, None without F0;
+    what the F0 module's program_tap caught in the song's pass, or None):
+    the state the reference's synthesizer reads in the judge, and the
+    stage the F0 module's checks judge. Keeps references, no copies."""
     from polgen_rvc_tpu_torch.pipeline.engine import VoiceConverter
 
     orig = VoiceConverter.__dict__["_prepare_song"]
+    inner = getattr(f0.model(config), "program_tap", None)
 
     def tapped(self, *args, **kwargs):
-        song = orig(self, *args, **kwargs)
-        sink.append(song.pitchf)
+        caught = []
+        with inner(caught) if inner else contextlib.nullcontext():
+            song = orig(self, *args, **kwargs)
+        sink.append((song.pitchf, caught[-1] if caught else None))
         return song
 
     VoiceConverter._prepare_song = tapped

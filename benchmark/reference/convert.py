@@ -2,9 +2,10 @@
 output is judged against.
 
 Per song: high-pass, pad and quantize, the chunk plan, one F0 pass over
-the padded buffer (RMVPE or mangio-crepe), the pitch shift and coarse
-bins. Per chunk, alone and at its own length (the port's masked models
-give a chunk the same values whatever bucket and batch it rides):
+the padded buffer (the configuration's F0 model, by its module in
+``benchmark/f0/``), the pitch shift and coarse bins. Per chunk, alone
+and at its own length (the port's masked models give a chunk the same
+values whatever bucket and batch it rides):
 HuBERT, the retrieval blend, the 2x frame repeat, the protect mix, the
 synthesizer with the chunk's noise (re-drawn from the seed formula
 seed * 1,000,003 + chunk id on the same device), the pad trim. Then the
@@ -16,7 +17,8 @@ The synthesizer may read another F0 track than the reference's own (the
 judge passes the one the program computed): the argmax of a random-weight
 RMVPE's flat salience is decided by rounding, so no independent path can
 reproduce the program's pitch frame for frame; the F0 pass is then judged
-by itself (f0.f0_mismatch_pct)."""
+by itself (f0.f0_mismatch_pct), or stage by stage where its module has
+checks (CREPE, benchmark/f0/crepe.py)."""
 
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from ..f0 import find, model as f0_model
 from . import f0 as f0_mod
 from .models import hubert, retrieval_blend, synthesize
 from .ops import Ops
@@ -45,8 +48,21 @@ def chunk_noise(seed: int, chunk_id: int, inter: int, frames: int, upp: int, dev
 
 def stated_ops(config: dict) -> Ops:
     """The reference's products at the precisions the configuration states:
-    float32, with RMVPE's U-Net operands as its "rmvpe" entry states."""
-    return Ops(None, unet=config.get("rmvpe", {}).get("operand_dtype"))
+    float32, but where its F0 model's entry states another (RMVPE's U-Net
+    operands)."""
+    model = f0_model(config)
+    return Ops(None, **({} if model is None else model.stated_operands(config)))
+
+
+def _dequant(qbuf, inv_scale, device):
+    return torch.from_numpy(qbuf).to(device).float() * float(inv_scale)
+
+
+def padded_buffer(audio16k: np.ndarray, eng: Engine, device):
+    """(the song's high-passed, padded and quantized buffer on device, as
+    float32, its padded length): what the F0 pass reads."""
+    _, qbuf, inv_scale, padded_len = highpass_pad_quant(audio16k, eng.t_pad, eng.window)
+    return _dequant(qbuf, inv_scale, device), padded_len
 
 
 @torch.no_grad()
@@ -68,17 +84,11 @@ def reference_convert(weights: dict, config: dict, audio16k: np.ndarray, opts: d
     upp, tgt_sr = math.prod(cfg[12]), cfg[17]
     audio, qbuf, inv_scale, padded_len = highpass_pad_quant(audio16k, eng.t_pad, eng.window)
     chunks = plan_chunks(audio, eng)
-    buf = torch.from_numpy(qbuf).to(device).float() * float(inv_scale)
+    buf = _dequant(qbuf, inv_scale, device)
     pitch = pitchf = None
     if use_f0:
-        if config["f0_model"] == "crepe":
-            f0 = f0_mod.crepe_f0(weights["crepe"], buf, padded_len, int(opts["hop_length"]),
-                                 opts["f0_min"], opts["f0_max"], config["crepe"]["layers"],
-                                 ops)
-        else:
-            f0 = f0_mod.rmvpe_f0(weights["rmvpe"], buf, ops)
-            f0 = torch.where((f0 < opts["f0_min"]) | (f0 > opts["f0_max"]),
-                             torch.zeros_like(f0), f0)
+        f0 = find(config["f0_model"]).reference_f0(weights[config["f0_model"]], config, buf,
+                                                   padded_len, opts, ops)
         pitchf = f0 * float(np.float32(2.0 ** (opts["pitch"] / 12.0)))
     own_f0 = pitchf
     if f0_track is not None:

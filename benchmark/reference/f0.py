@@ -87,19 +87,31 @@ def f0_mismatch_pct(got, ref, frames: int, cents: float = 50.0) -> float:
     return 100.0 * float(((vg != vr) | apart).double().mean()) if frames else 0.0
 
 
-def f0_cents_mean(got, ref, frames: int) -> float:
-    """Mean pitch error in cents over the first `frames` frames voiced in
-    either track: |1200 log2(got / ref)| capped at 1200 where both are
-    voiced, 1200 where only one is."""
+def _cents_error(got, ref, frames: int):
+    """Per frame voiced in either of two tracks, over their first `frames`
+    frames: |1200 log2(got / ref)| capped at 1200 where both are voiced,
+    1200 where only one is."""
     got, ref = got[:frames].double(), ref[:frames].double()
     vg, vr = got > 0, ref > 0
-    either = vg | vr
-    if not bool(either.any()):
-        return 0.0
     err = torch.full_like(got, 1200.0)
     both = vg & vr
     err[both] = torch.clamp((1200.0 * torch.log2(got[both] / ref[both])).abs(), max=1200.0)
-    return float(err[either].mean())
+    return err[vg | vr]
+
+
+def f0_cents_max(got, ref, frames: int) -> float:
+    """The largest pitch error in cents over the first `frames` frames
+    voiced in either track: a fault on any one frame reads in full."""
+    err = _cents_error(got, ref, frames)
+    return float(err.max()) if err.numel() else 0.0
+
+
+def salience_rel_err(got, ref) -> float:
+    """||got - ref|| / ||ref|| of two (frames, bins) saliences, in float64."""
+    got, ref = got.double(), ref.double()
+    if got.shape != ref.shape:
+        return float("inf")
+    return float((got - ref).norm() / torch.clamp(ref.norm(), min=1e-300))
 
 
 # --------------------------------------------------------------------------
@@ -264,13 +276,12 @@ def viterbi(log_obs: np.ndarray, width: int = 12) -> np.ndarray:
     return path
 
 
-def crepe_f0(sd, buf, padded_len: int, hop: int, f0_min: float, f0_max: float,
-             layers, ops, slab: int = 512):
-    """mangio-crepe over the padded signal: n = padded_len // hop + 1 frames of
-    1024 samples (frame f from sample f * hop - 512, zeros outside the
-    buffer), each normalized by its mean and population std; salience in
-    slabs, each cast to float16; then the decode and the resize onto
-    padded_len // 160 frames, zero from there to S // 160 + 1."""
+def crepe_salience_track(sd, buf, padded_len: int, hop: int, layers, ops,
+                         slab: int = 512):
+    """mangio-crepe's salience over the padded signal: n = padded_len // hop
+    + 1 frames of 1024 samples (frame f from sample f * hop - 512, zeros
+    outside the buffer), each normalized by its mean and population std;
+    computed in slabs, each cast to float16 -> (n, 360) float32."""
     n = padded_len // hop + 1
     x = F.pad(buf.float(), (512, n * hop + 1024))
     sal = []
@@ -280,17 +291,28 @@ def crepe_f0(sd, buf, padded_len: int, hop: int, f0_min: float, f0_max: float,
         fr = (fr - fr.mean(-1, keepdim=True)) / torch.clamp(
             fr.std(-1, keepdim=True, correction=0), min=1e-10)
         sal.append(crepe_salience(sd, fr, layers, ops).to(torch.float16))
-    sal = torch.cat(sal).float()
+    return torch.cat(sal).float()
+
+
+def crepe_decode(sal, padded_len: int, f0_min: float, f0_max: float, out_size: int,
+                 q=None):
+    """(n, 360) float32 salience -> (out_size,) Hz: bins outside [f0_min,
+    f0_max] masked, the Viterbi decode, the weighted cents, then the resize
+    onto padded_len // 160 frames, zero from there to out_size. q, where
+    given, rounds the decode's operands: the log observations and the
+    salience the cents average weighs (Ops.q_decode)."""
+    q = q or (lambda t: t)
+    n = sal.shape[0]
     freqs = 10.0 * 2.0 ** ((20.0 * np.arange(BINS) + CENTS_OFFSET).astype(np.float32)
                            .astype(np.float64) / 1200.0)
     masked = torch.from_numpy((freqs < f0_min) | (freqs > f0_max)).to(sal.device)
     probs = torch.where(masked[None, :], torch.zeros_like(sal), sal)
     obs = probs / torch.clamp(probs.sum(1, keepdim=True), min=1e-20)
-    path = viterbi(torch.log(obs + 1e-20).cpu().numpy())
-    cents = _weighted_cents(sal, torch.from_numpy(path).to(sal.device))
+    path = viterbi(q(torch.log(obs + 1e-20)).cpu().numpy())
+    cents = _weighted_cents(q(sal), torch.from_numpy(path).to(sal.device))
     f0 = 10.0 * (2.0 ** (cents / 1200.0))
     # the reference resize: np.interp of the n-frame track onto p_len frames
-    p_len, out_size = padded_len // 160, buf.shape[0] // 160 + 1
+    p_len = padded_len // 160
     f0 = f0.cpu().numpy().astype(np.float64)
     f0[f0 < 0.001] = np.nan
     grid = np.arange(p_len) * n / p_len
@@ -298,4 +320,13 @@ def crepe_f0(sd, buf, padded_len: int, hop: int, f0_min: float, f0_max: float,
     out = np.nan_to_num(out).astype(np.float32)
     full = np.zeros(out_size, np.float32)
     full[:p_len] = out
-    return torch.from_numpy(full).to(buf.device)
+    return torch.from_numpy(full).to(sal.device)
+
+
+def crepe_f0(sd, buf, padded_len: int, hop: int, f0_min: float, f0_max: float,
+             layers, ops, slab: int = 512):
+    """mangio-crepe over the padded signal: the salience track, then the
+    decode onto the buffer's S // 160 + 1 frames."""
+    sal = crepe_salience_track(sd, buf, padded_len, hop, layers, ops, slab)
+    return crepe_decode(sal, padded_len, f0_min, f0_max, buf.shape[0] // 160 + 1,
+                        ops.q_decode)

@@ -10,7 +10,12 @@ operands with fp32 accumulation).
 ``Ops("fp8")`` first rounds both operands of every product to float8
 e4m3 against the tensor's own absolute maximum (per-tensor scale, as fp8
 inference scales them): the control, the reference one precision step
-below the bf16 the configurations run their models in."""
+below the bf16 the configurations run their models in.
+
+``Ops("bf16_decode")`` keeps every product as stated and rounds the
+operands of the F0 decode to bf16 (CREPE's Viterbi observations and the
+salience weights of its cents average): the control of the decode, one
+step below the float32 it runs in."""
 
 from __future__ import annotations
 
@@ -36,11 +41,12 @@ def _same(t):
 
 class Ops:
     def __init__(self, operand=None, unet=None):
-        if operand not in (None, "fp8") or unet not in (None, "float32", "bfloat16"):
+        if operand not in (None, "fp8", "bf16_decode") or unet not in (None, "float32", "bfloat16"):
             raise ValueError(f"unknown operand rounding {operand!r}, {unet!r}")
         self.q = fp8_round if operand == "fp8" else _same
         self.q_unet = (fp8_round if operand == "fp8"
                        else bf16_round if unet == "bfloat16" else _same)
+        self.q_decode = bf16_round if operand == "bf16_decode" else _same
 
     def unet_conv2d(self, x, w, b=None, *, round_input=True, **kw):
         """A U-Net conv at the layer's stated operand precision; a shortcut

@@ -37,3 +37,10 @@ def tiny():
         with open(DATA / f"{name}.json") as f:
             mixes[name] = json.load(f)
     return config, mixes
+
+
+@pytest.fixture
+def tiny_v1():
+    """The tiny widths at RVC v1 32 kHz's decoder rates."""
+    with open(DATA / "tiny_v1_rmvpe.json") as f:
+        return json.load(f)

@@ -13,7 +13,10 @@ JAX_SIDE = {"jax", "jaxlib", "flax", "polgen_rvc_tpu"}
 
 
 def imported_tops(path: Path) -> set:
-    tree = ast.parse(path.read_text())
+    return _tops(ast.parse(path.read_text()))
+
+
+def _tops(tree) -> set:
     tops = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -36,6 +39,21 @@ def test_no_jax_side_import(path):
 def test_reference_imports_nothing_of_the_port(path):
     assert "polgen_rvc_tpu_torch" not in imported_tops(path)
     assert not imported_tops(path) & JAX_SIDE
+
+
+@pytest.mark.parametrize("path", sorted((BENCH / "f0").glob("*.py")), ids=lambda p: p.name)
+def test_f0_modules_reach_the_port_only_in_program_params(path):
+    """The reference calls these modules: at import, and in every function
+    but the two of the program's side (program_params, which makes the
+    port's arguments, and program_tap, which catches what its pass hands
+    its last stage), they take nothing of it."""
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and node.name in ("program_params",
+                                                               "program_tap"):
+            continue
+        sub = ast.Module(body=[node], type_ignores=[])
+        assert "polgen_rvc_tpu_torch" not in _tops(sub), (path.name, getattr(node, "name", ""))
 
 
 def test_whole_names_are_compared(monkeypatch):

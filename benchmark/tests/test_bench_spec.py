@@ -1,6 +1,7 @@
 """BENCHMARK.json and the files the harness finds by name."""
 
 import json
+import math
 import re
 
 import pytest
@@ -20,7 +21,11 @@ def test_every_cell_finds_its_parts_by_name(bench):
         config = spec.load_config(cell["config"])
         traffic = spec.load_traffic(cell["traffic"])
         limits = spec.load_limits(cell["name"])
-        assert config["synthesizer"]["config"][17] == 48000
+        # a published RVC config: 100 frames a second at every published rate,
+        # upsampled by the product of the decoder's rates
+        rate, up_rates = config["synthesizer"]["config"][17], config["synthesizer"]["config"][12]
+        assert rate in (32000, 40000, 48000)
+        assert rate == 100 * math.prod(up_rates)
         assert traffic["entry"] in ("convert", "convert_batch")
         assert {"mel_db", "length_diff"} <= set(limits)
         for m in spec.metrics_for(bench, cell["name"], "per_layer"):
@@ -35,6 +40,9 @@ def test_metrics_for_keeps_cell_lists(bench):
     assert e2e == {"rtf", "latency_p95_s", "setup_s"}
     layers = {m["name"] for m in spec.metrics_for(bench, "v2_48k_crepe.songs", "per_layer")}
     assert "viterbi_roofline" in layers and "unet_roofline" not in layers
+    v2 = {m["name"] for m in spec.metrics_for(bench, "v2_48k_rmvpe.songs", "per_layer")}
+    v1 = {m["name"] for m in spec.metrics_for(bench, "v1_32k_rmvpe.songs", "per_layer")}
+    assert v1 == v2
 
 
 def test_contract_shapes(bench):

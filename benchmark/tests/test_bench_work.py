@@ -39,6 +39,18 @@ def test_resblock_counts():
     assert nbytes == act + wts
 
 
+def test_resblock_counts_v1_at_its_valid_widths():
+    """v1 32 kHz: five stages from 512 channels, the fifth 16 wide; its
+    work is counted at 16 channels, not the 32 the port pads it to."""
+    c = spec.load_config("v1_32k_rmvpe")
+    engine = Engine(**c["engine"])
+    flops, _ = spec.load_metric("resblock_roofline").work(c, engine, window([SLICE]))
+    stages = [(256, FRAMES * 10), (128, FRAMES * 40), (64, FRAMES * 80), (32, FRAMES * 160),
+              (16, FRAMES * 320)]
+    # three ResBlock1 (k 3, 7, 11; dilations 1, 3, 5): 2 * 3 convs of 2 C^2 k T each
+    assert flops == sum(2 * 3 * 2 * c * c * (3 + 7 + 11) * t for c, t in stages)
+
+
 def test_upsample_counts():
     w, c = window([SLICE], batches=2), config()
     flops, nbytes = spec.load_metric("upsample_roofline").work(c, ENGINE, w)

@@ -1,7 +1,7 @@
 """Random weights of a configuration, made from the seed on the card, in the
 public checkpoint layouts a user's files have: the RVC v2 ``.pth`` weight
 dict (weight-normed convs as weight_g / weight_v), fairseq HuBERT's state
-dict, rmvpe.pt's and torchcrepe-full's state dicts, and the index bank.
+dict, the F0 model's (made by its module in ``f0/``), and the index bank.
 
 The values follow the rule of the port's synthetic builders (a copy of the
 rule, not a call): standard normals scaled by 1/sqrt(fan-in), weight-norm
@@ -18,6 +18,9 @@ from __future__ import annotations
 import math
 
 import torch
+
+from . import f0
+from .init import fan as _fan, linear as _linear
 
 
 class Normals:
@@ -41,10 +44,6 @@ class Normals:
         return out
 
 
-def _fan(*dims) -> float:
-    return 1.0 / max(math.sqrt(math.prod(dims)), 1.0)
-
-
 def _wn(nrm, sd, prefix, shape, norm_dim=0, bias=True, fan=None):
     """weight_v (scaled by 1/sqrt(fan), by default every axis but the first)
     and weight_g (|0.2 n| + 0.8 times the norm of v over every axis but
@@ -61,12 +60,6 @@ def _wn(nrm, sd, prefix, shape, norm_dim=0, bias=True, fan=None):
 
 def _conv(nrm, sd, prefix, out_c, in_c, k, bias=True):
     sd[f"{prefix}.weight"] = nrm(out_c, in_c, k) * _fan(in_c, k)
-    if bias:
-        sd[f"{prefix}.bias"] = nrm(out_c) * 0.02
-
-
-def _linear(nrm, sd, prefix, out_c, in_c, bias=True):
-    sd[f"{prefix}.weight"] = nrm(out_c, in_c) * _fan(in_c)
     if bias:
         sd[f"{prefix}.bias"] = nrm(out_c) * 0.02
 
@@ -160,85 +153,15 @@ def hubert_weights(nrm, cfg: dict) -> dict:
     return sd
 
 
-def rmvpe_weights(nrm, n_blocks: int = 4) -> dict:
-    """rmvpe.pt's E2E(4, 1, (2, 2)) state dict."""
-    sd = {}
-
-    def bn(prefix, c):
-        sd[f"{prefix}.weight"] = nrm(c) * 0.01 + 1.0
-        sd[f"{prefix}.bias"] = nrm(c) * 0.01
-        sd[f"{prefix}.running_mean"] = nrm(c) * 0.1
-        sd[f"{prefix}.running_var"] = (nrm(c) * 0.1).abs() + 1.0
-        sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
-
-    def block(prefix, in_c, out_c):
-        sd[f"{prefix}.conv.0.weight"] = nrm(out_c, in_c, 3, 3) * _fan(in_c, 3, 3)
-        bn(f"{prefix}.conv.1", out_c)
-        sd[f"{prefix}.conv.3.weight"] = nrm(out_c, out_c, 3, 3) * _fan(out_c, 3, 3)
-        bn(f"{prefix}.conv.4", out_c)
-        if in_c != out_c:
-            sd[f"{prefix}.shortcut.weight"] = nrm(out_c, in_c, 1, 1) * _fan(in_c)
-            sd[f"{prefix}.shortcut.bias"] = nrm(out_c) * 0.02
-
-    bn("unet.encoder.bn", 1)
-    in_c, out_c = 1, 16
-    for i in range(5):
-        for j in range(n_blocks):
-            block(f"unet.encoder.layers.{i}.conv.{j}", in_c if j == 0 else out_c, out_c)
-        in_c, out_c = out_c, out_c * 2
-    for i in range(4):
-        for j in range(n_blocks):
-            block(f"unet.intermediate.layers.{i}.conv.{j}",
-                  256 if (i == 0 and j == 0) else 512, 512)
-    c = 512
-    for i in range(5):
-        oc = c // 2
-        sd[f"unet.decoder.layers.{i}.conv1.0.weight"] = nrm(c, oc, 3, 3) * _fan(c, 3, 3)
-        bn(f"unet.decoder.layers.{i}.conv1.1", oc)
-        for j in range(n_blocks):
-            block(f"unet.decoder.layers.{i}.conv2.{j}", oc * 2 if j == 0 else oc, oc)
-        c = oc
-    sd["cnn.weight"] = nrm(3, 16, 3, 3) * _fan(16, 3, 3)
-    sd["cnn.bias"] = nrm(3) * 0.02
-    for suffix in ("", "_reverse"):
-        sd[f"fc.0.gru.weight_ih_l0{suffix}"] = nrm(768, 384) * _fan(384)
-        sd[f"fc.0.gru.weight_hh_l0{suffix}"] = nrm(768, 256) * _fan(256)
-        sd[f"fc.0.gru.bias_ih_l0{suffix}"] = nrm(768) * 0.02
-        sd[f"fc.0.gru.bias_hh_l0{suffix}"] = nrm(768) * 0.02
-    _linear(nrm, sd, "fc.1", 360, 512)
-    return sd
-
-
-def crepe_weights(nrm, layers) -> dict:
-    """torchcrepe's state dict (conv{i}, conv{i}_BN, classifier), with
-    batch-norm statistics away from the identity."""
-    sd = {}
-    in_c = 1
-    for i, (out_c, k, _, _, _) in enumerate(layers):
-        sd[f"conv{i + 1}.weight"] = nrm(out_c, in_c, k, 1) * (1.0 / math.sqrt(in_c * k))
-        sd[f"conv{i + 1}.bias"] = nrm(out_c) * 0.02
-        sd[f"conv{i + 1}_BN.weight"] = nrm(out_c) * 0.2 + 1.0
-        sd[f"conv{i + 1}_BN.bias"] = nrm(out_c) * 0.1
-        sd[f"conv{i + 1}_BN.running_mean"] = nrm(out_c) * 0.1
-        sd[f"conv{i + 1}_BN.running_var"] = (nrm(out_c) * 0.3).exp()
-        in_c = out_c
-    in_features = layers[-1][0] * 4
-    sd["classifier.weight"] = nrm(360, in_features) * (1.0 / math.sqrt(in_features))
-    sd["classifier.bias"] = nrm(360) * 0.0
-    return sd
-
-
 def _model_set(nrm, config: dict) -> dict:
     syn = config["synthesizer"]
     hub = config["hubert"]
     content_dim = hub["embed_dim"] if syn["version"] == "v2" else hub["final_dim"]
     out = {"rvc": rvc_weights(nrm, syn["config"], bool(syn["f0"]), content_dim),
            "hubert": hubert_weights(nrm, config["hubert"])}
-    f0 = config.get("f0_model")
-    if f0 == "rmvpe":
-        out["rmvpe"] = rmvpe_weights(nrm)
-    elif f0 == "crepe":
-        out["crepe"] = crepe_weights(nrm, config["crepe"]["layers"])
+    f0_model = f0.model(config)
+    if f0_model is not None:
+        out[config["f0_model"]] = f0_model.make_weights(nrm, config)
     if config.get("index_vectors"):
         out["index"] = nrm(config["index_vectors"], content_dim) * 0.5
     return out
@@ -246,8 +169,9 @@ def _model_set(nrm, config: dict) -> dict:
 
 @torch.no_grad()
 def make_weights(config: dict, seed: int, device) -> dict:
-    """{"rvc", "hubert", and "rmvpe" or "crepe", "index"} -> the state dicts
-    (and the bank) of the configuration, float32 on `device`."""
+    """{"rvc", "hubert", the F0 model's name (benchmark/f0/), "index"} ->
+    the state dicts (and the bank) of the configuration, float32 on
+    `device`, drawn in that order."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return _model_set(Normals(gen, device), config)
