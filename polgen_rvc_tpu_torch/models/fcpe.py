@@ -15,6 +15,10 @@ the card it runs as these plain PyTorch ops, in float32 with TF32 off
 ``n_valid`` (frames of real signal in a zero-padded bucket) keeps every
 frame-global op (GroupNorm statistics, the FAVOR+ sums, each conv's window
 at the boundary) blind to the padding, as in the JAX package.
+
+Spans (utils/tracing.py): ``polgen.fcpe.mel`` around ``fcpe_mel`` and
+``polgen.fcpe.net`` around ``fcpe_salience`` (the stack, the PCmer layers
+and the head); pipeline/fcpe_method.py opens ``polgen.fcpe.decode``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 
 from ..ops.audio import log_mel_spectrogram, mel_filterbank
 from ..ops.conv import conv1d
+from ..utils.tracing import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +66,7 @@ def _fcpe_mel_basis(sr, n_fft, n_mels, fmin, fmax):
                           fmax=fmax, htk=False)
 
 
+@spanned("polgen.fcpe.mel")
 def fcpe_mel(audio, cfg: FcpeConfig):
     """(B, T) -> (B, T // hop + 1, mels) log-mel frames: (win - hop)//2
     samples of padding on the left, enough on the right for one frame
@@ -171,6 +177,7 @@ def _conformer_conv(x, p, nmask=None):
     return y.transpose(1, 2)
 
 
+@spanned("polgen.fcpe.net")
 def fcpe_salience(params, cfg: FcpeConfig, mel, n_valid=None):
     """(B, N, mels) -> (B, N, 360) sigmoid salience. With n_valid, frames
     [0, n_valid) equal an unpadded run's to float rounding; later frames

@@ -9,6 +9,11 @@ of pipeline/f0_dispatch.py, which the JAX convert takes when the FCPE hop
 equals the engine's window: the mel over the whole zero-tailed bucket,
 padded_len // hop + 1 frames as n_valid, the decode, and fcpe_resize_fill
 in place of the host post.
+
+Both paths decode inside the span ``polgen.fcpe.decode`` and count, per
+pass, the mel frames the net runs over (``fcpe_frames_computed``: the
+bucket's) and the frames of signal among them (``fcpe_frames_valid``:
+n_valid), every pass of the process, prewarm's too.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 from ..models.fcpe import (
     fcpe_decode, fcpe_mel, fcpe_post_process, fcpe_resize_fill, fcpe_salience,
 )
+from ..utils.tracing import count, span
 
 _FRAME_BUCKET = 1024
 
@@ -29,8 +35,10 @@ def fcpe_f0_device(params, cfg, buf, padded_len: int, p_len: int,
     valid -> (S // hop + 1,) float32 Hz on buf's device, zero from p_len."""
     mel = fcpe_mel(buf.float()[None], cfg)
     n = padded_len // cfg.hop_size + 1
+    _count_frames(mel.shape[1], n)
     sal = fcpe_salience(params, cfg, mel, n_valid=n)
-    return fcpe_resize_fill(fcpe_decode(sal, cfg, threshold)[0], n, p_len)
+    with span("polgen.fcpe.decode"):
+        return fcpe_resize_fill(fcpe_decode(sal, cfg, threshold)[0], n, p_len)
 
 
 def fcpe_f0(params, cfg, audio, p_len: int, threshold: float = 0.03) -> np.ndarray:
@@ -39,8 +47,15 @@ def fcpe_f0(params, cfg, audio, p_len: int, threshold: float = 0.03) -> np.ndarr
     n = mel.shape[1]
     bucket = -(-n // _FRAME_BUCKET) * _FRAME_BUCKET
     mel = torch.cat([mel, mel.new_zeros(1, bucket - n, mel.shape[2])], dim=1)
+    _count_frames(bucket, n)
     sal = fcpe_salience(params, cfg, mel, n_valid=n)
-    f0 = fcpe_decode(sal, cfg, threshold)[0, :n].cpu().numpy()
-    if not np.any(f0 > 0):
-        return np.zeros(p_len, np.float32)
-    return fcpe_post_process(f0, p_len, cfg.hop_size, cfg.sampling_rate)
+    with span("polgen.fcpe.decode"):
+        f0 = fcpe_decode(sal, cfg, threshold)[0, :n].cpu().numpy()
+        if not np.any(f0 > 0):
+            return np.zeros(p_len, np.float32)
+        return fcpe_post_process(f0, p_len, cfg.hop_size, cfg.sampling_rate)
+
+
+def _count_frames(computed: int, valid: int) -> None:
+    count("fcpe_frames_computed", computed)
+    count("fcpe_frames_valid", valid)

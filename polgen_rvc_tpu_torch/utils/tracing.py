@@ -22,6 +22,10 @@ Counters. A registry of plain integers of the process, read with
     launches.<kernel> launches of each hand-written kernel (ops/)
     gru_steps         steps of the BiGRU scan kernel: batch rows x frames
                       x 2 directions a launch (ops/rnn.py)
+    fcpe_frames_computed
+                      each FCPE pass: the mel frames its net runs over, the
+                      bucket's (pipeline/fcpe_method.py)
+    fcpe_frames_valid the frames of signal among them (n_valid)
     kernel_builds     kernel libraries compiled with nvcc (ops/cuda_build.py)
     kernel_loads      kernel libraries loaded with ctypes
 

@@ -161,15 +161,17 @@ def test_prewarm_leaves_the_counters_unchanged(vc):
     ("fcpe", {"polgen.fcpe"}),
 ])
 def test_other_f0_passes_name_their_parts(method, held):
-    """CREPE (full width) over a few frames at a wide hop, and FCPE: the F0
-    pass alone, outside the polgen.f0 span that _prepare_song opens."""
+    """CREPE (full width) over a few frames at a wide hop, and FCPE (its
+    mel, net and decode inside its pass): the F0 pass alone, outside the
+    polgen.f0 span that _prepare_song opens."""
     vc = build_synthetic_converter(tiny=True, sr=48000, device="cpu",
                                    with_crepe=method == "mangio-crepe",
                                    with_fcpe=method == "fcpe")
     buf = torch.from_numpy(_bench_song(1.0).astype(np.float32))
     opts = ConversionOptions(f0_method=method, hop_length=1600)
     _, spans = profiled(lambda: vc.compute_f0(buf, opts, buf.shape[0]))
-    assert nesting(spans) == {(None, n) for n in held}
+    inner = {("polgen.fcpe", f"polgen.fcpe.{part}") for part in ("mel", "net", "decode")}
+    assert nesting(spans) == {(None, n) for n in held} | (inner if method == "fcpe" else set())
 
 
 def test_ui_jobs_span_their_wait_and_run(monkeypatch):
