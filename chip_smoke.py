@@ -6,12 +6,20 @@
 It drives five paths: rmvpe+ (the main path), mangio-crepe, fcpe, a no-f0
 model and a v1 32 kHz model, the main and no-f0 paths again on device
 meshes, and batch covers split over two processes, and holds each of the
-six kernels against its plain twin.
+seven kernels against its plain twin.
 Phases, each printing one JSON line (any failure raises; exit code != 0):
   1. card:     nvidia-smi name and power limit, torch/CUDA versions, the
                parallel nvcc build of every kernel from csrc/ and its time,
                and the g++ build of the native FLAC codec and effects
                chain (native/) into build/native/ and its time.
+  highpass:    the conversion head's kernel (ops/highpass.py,
+               csrc/highpass.cu) on bench_song at 150 and 240 s: its four
+               outputs equal the plain twin's bit for bit; the int16 buffer
+               within one count of the host's scipy head on at most 2e-3 of
+               the samples; its device time by CUDA events (mean of 20) and
+               each of its kernels' under the profiler, beside its byte
+               bounds (as designed, and each input and output once), the
+               twin's and the host head's wall time.
   2. main:     the main path, as bench.py times it on an accelerator:
                build_synthetic_converter(tiny=False, sr=48000,
                index_vectors=65536, bf16 engine at bench's tiers) and
@@ -33,7 +41,7 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                bucket class and packed two rows a batch, each batch at its
                largest chunk's bucket: launches per packed batch (resblock group
                36, conv-transpose 4, band attention 6) and per song (U-Net
-               chain 112, BiGRU scan 1); every song equal to its serial
+               chain 112, BiGRU scan 1, high-pass 1); every song equal to its serial
                convert byte for byte, also where a chunk rides another
                bucket packed (the decoder's conv_pre runs at one fixed
                length); wall, RTF and
@@ -1105,7 +1113,7 @@ def batch_phase(vc, song, opts, baseline, smi, seconds=BATCH_SONGS_S) -> list:
     One warm-up of each route; then the packed call with the launch counts
     set to 0 before it and read after it (resblock group 36 and
     conv-transpose 4 per packed batch, band attention 6 per batch, the
-    U-Net chain 112 per song), and the four serial converts, each timed on
+    U-Net chain 112 and the high-pass 1 per song), and the four serial converts, each timed on
     the host clock and profiled for device time. A song all of whose chunks
     ride the same bucket in both routes must come out byte for byte; any
     other song's difference is printed, per chunk too, and must stay below
@@ -1168,7 +1176,8 @@ def batch_phase(vc, song, opts, baseline, smi, seconds=BATCH_SONGS_S) -> list:
     conv_pre_ms = conv_pre_times(vc, sorted(set(batches)))
     b, n_songs = len(batches), len(songs)
     want = {"resblock_group": 36 * b, "conv_transpose": 4 * b, "band_attention": 6 * b,
-            "unet_chain": 112 * n_songs, "gru_scan": n_songs, "viterbi": 0}
+            "unet_chain": 112 * n_songs, "gru_scan": n_songs, "viterbi": 0,
+            "highpass": n_songs}
     per_song = []
     for si, (plan, (out, sr), (ref, ref_sr)) in enumerate(zip(plans, packed, serial)):
         same = packed_bucket[si] == serial_bucket[si]
@@ -1258,7 +1267,7 @@ def mesh_run(label, mvc, song, opts, refs, baseline, smi, n_batches, bounds,
                 "conv_transpose": 4 * n_data * batches,
                 "band_attention": 6 * n_data * batches,
                 "unet_chain": 112 * songs_n if use_f0 else 0,
-                "gru_scan": songs_n if use_f0 else 0, "viterbi": 0}
+                "gru_scan": songs_n if use_f0 else 0, "viterbi": 0, "highpass": songs_n}
 
     parts = {}
     run = drive(mvc, song, opts, baseline)
@@ -1798,8 +1807,9 @@ def prewarm_child(mode: str, root: str) -> int:
 
 def prewarm_phase(root, main_out, smi) -> dict:
     """Two fresh child processes on the checkpoint phase's files (see
-    prewarm_child): prewarm loads the five kernel libraries of an rmvpe+
-    convert (the U-Net chain, the BiGRU scan, the synthesizer's three);
+    prewarm_child): prewarm loads the six kernel libraries of an rmvpe+
+    convert (the high-pass, the U-Net chain, the BiGRU scan, the
+    synthesizer's three);
     after it, the warm child's converts build and load no kernel; all four
     converts equal the main path's output byte for byte. Prints the cold
     first convert's wall, the prewarmed first convert's and the steady
@@ -1824,7 +1834,7 @@ def prewarm_phase(root, main_out, smi) -> dict:
               "builds_and_loads_after_prewarm": extra, "equal_to_main": equal,
               "card": smi}
     emit(result)
-    kernels = ["unet_chain", "gru_scan", "resblock_group", "conv_transpose",
+    kernels = ["highpass", "unet_chain", "gru_scan", "resblock_group", "conv_transpose",
                "band_attention"]
     if warm["prewarm_kernels"] != kernels or after["loads"] != len(kernels):
         raise AssertionError(f"prewarm: kernels {warm['prewarm_kernels']}, "
@@ -1939,7 +1949,7 @@ def hosts_phase(root, batch_out, smi) -> dict:
             raise AssertionError(f"hosts: rank {r['rank']}'s host_sum {r['host_sum']}")
         got = r["launches"]
         if (got["unet_chain"] != 112 * len(r["songs"]) or got["viterbi"]
-                or got["gru_scan"] != len(r["songs"])
+                or got["gru_scan"] != len(r["songs"]) or got["highpass"] != len(r["songs"])
                 or got["resblock_group"] % 72 or got["conv_transpose"] % 8
                 or got["band_attention"] % 12 or not got["resblock_group"]
                 or got["resblock_group"] // 72 != got["conv_transpose"] // 8
@@ -2138,6 +2148,58 @@ def discriminator_phase(smi) -> dict:
     return result
 
 
+def highpass_phase(smi) -> dict:
+    """The conversion head's kernel on bench_song at 150 and 240 s (see the
+    module docstring); raises where it differs from its twin or the host."""
+    import torch
+
+    from polgen_rvc_tpu_torch.ops import highpass as hp
+    from polgen_rvc_tpu_torch.ops.filters import highpass_pad_quant
+
+    t_pad = BENCH_TIERS["x_pad"] * 16000
+    songs = []
+    for seconds in (150.0, 240.0):
+        song = bench_song(seconds)
+        x = torch.from_numpy(song).cuda()
+        got = [t.cpu() for t in hp.highpass_pad_quant(x, t_pad)]
+        ms = cuda_ms(lambda: hp.highpass_pad_quant(x, t_pad), reps=20)
+        per_kernel = profile_call(lambda: hp.highpass_pad_quant(x, t_pad))["kernels"]
+        t0 = time.perf_counter()
+        twin = hp.highpass_pad_quant_plain(torch.from_numpy(song), t_pad)
+        twin_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h_audio, h_q, h_inv, _ = highpass_pad_quant(song, t_pad)
+        host_s = time.perf_counter() - t0
+        n, ext = song.shape[0], song.shape[0] + 2 * hp.PADLEN
+        bucket = got[1].shape[0]
+        # the input read, the float64 extension written, read twice, rewritten
+        # and read twice more, the float32 signal written and read, the buffers
+        designed = 4 * n + 6 * 8 * ext + 2 * 4 * n + (2 + 4) * bucket
+        once = 4 * n + 4 * n + (2 + 4) * bucket
+        dq = np.abs(got[1].numpy().astype(np.int32) - h_q)
+        entry = {"seconds": seconds, "samples": n, "bucket": bucket, "ms": ms,
+                 "kernels": per_kernel,
+                 "bound_ms_designed": designed / PEAK_BYTES_PER_S * 1e3,
+                 "bound_ms_once": once / PEAK_BYTES_PER_S * 1e3,
+                 "roofline_share_once": once / PEAK_BYTES_PER_S * 1e3 / ms,
+                 "twin_ms": twin_s * 1e3, "host_scipy_ms": host_s * 1e3,
+                 "twin_bitwise": all(torch.equal(g, w) for g, w in zip(got, twin)),
+                 "float32_max_diff_over_peak":
+                     float(np.abs(got[0].numpy() - h_audio).max() / np.abs(h_audio).max()),
+                 "int16_differing_share": float((dq > 0).mean()),
+                 "int16_max_diff": int(dq.max()),
+                 "inv_scale": [float(got[2]), float(h_inv)]}
+        songs.append(entry)
+        if not entry["twin_bitwise"]:
+            raise AssertionError(f"highpass at {seconds} s: the kernel differs from its twin")
+        if dq.max() > 1 or (dq > 0).mean() > 2e-3:
+            raise AssertionError(f"highpass at {seconds} s: int16 off the host's: "
+                                 f"{dq.max()} counts on {(dq > 0).mean():.2e}")
+    result = {"phase": "highpass", "songs": songs, "card": smi}
+    emit(result)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2171,8 +2233,11 @@ def main() -> int:
           "build_s": build_s, "ptxas": ptxas, "native_build_s": native_s,
           "native": {k: os.path.relpath(v) for k, v in native_libs.items()}})
 
+    highpass_phase(smi)
+
     baseline = launch_baseline()
-    synth_kernels = ("resblock_group", "conv_transpose", "band_attention")
+    # every convert launches the high-pass, then the synthesizer's three
+    synth_kernels = ("highpass", "resblock_group", "conv_transpose", "band_attention")
 
     # ---- main path (rmvpe+) ------------------------------------------------
     eng = EngineConfig(**BENCH_TIERS, compute_dtype="bfloat16")
@@ -2518,7 +2583,7 @@ def main() -> int:
                                 "the relative key and value terms, so not this "
                                 "function; the port never calls it"}
             if name == "band_attention" else {})}
-        for name in baseline
+        for name in sources   # the high-pass has its own phase line
     ]}
     emit({"phase": "total"})
     emit(line)

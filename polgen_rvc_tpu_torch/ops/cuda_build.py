@@ -34,7 +34,7 @@ from ..utils.tracing import count, counters, span
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("resblock_group", "conv_transpose", "band_attention", "unet_chain",
-           "viterbi", "gru_scan")
+           "viterbi", "gru_scan", "highpass")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

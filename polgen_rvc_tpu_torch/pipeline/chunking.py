@@ -33,12 +33,18 @@ class ChunkPlan:
     chunks: List[Chunk]
 
 
+def is_cut(n: int, cfg: EngineConfig) -> bool:
+    """Whether a signal of n samples is cut (its reflect-padded length
+    exceeds t_max): only then do its values decide the plan."""
+    return n + 2 * (cfg.window // 2) > cfg.t_max
+
+
 def find_cut_points(audio: np.ndarray, cfg: EngineConfig) -> list[int]:
     """Quiet-point cut sample indices (frame-aligned), reference semantics."""
     window = cfg.window
-    audio_pad = np.pad(audio, (window // 2, window // 2), mode="reflect")
-    if audio_pad.shape[0] <= cfg.t_max:
+    if not is_cut(audio.shape[0], cfg):
         return []
+    audio_pad = np.pad(audio, (window // 2, window // 2), mode="reflect")
     # sliding sum of `window` consecutive samples
     csum = np.cumsum(np.concatenate([[0.0], audio_pad]))
     audio_sum = csum[window:] - csum[:-window]  # len == len(audio) + 1

@@ -4,20 +4,22 @@ and for no-f0 models, in eager PyTorch on one device or a mesh; ``convert_batch`
 (pipeline/batch_cover.py) packs chunks of several songs into its batches,
 and ``prewarm`` (pipeline/prewarm.py) does a convert's first-call setup.
 
-Per song (``_prepare_song``): host high-pass, reflect pad and int16
-quantize (one upload, dequantized once on the device); quiet-point chunk
-planning; one full-signal F0 pass (f0 models only): RMVPE (fp32), CREPE
-(conv operands in the compute dtype, decode in fp32) or FCPE (fp32). Per
-batch of ``chunk_batch`` chunks, padded to that batch's own bucket
-(``_convert_rows``): HuBERT -> top-k retrieval blend -> 2x frame repeat ->
+Per song (``_prepare_song``): the float64 high-pass, reflect pad, int16
+quantize and dequantize (on the card by ops/highpass.py's kernel, from
+the raw signal's upload); one full-signal F0 pass (f0 models only) over
+that buffer: RMVPE (fp32), CREPE (conv operands in the compute dtype,
+decode in fp32) or FCPE (fp32); quiet-point chunk planning, for a song
+long enough to be cut on the host's own high-passed signal, made on a
+worker thread during the F0 pass. Per batch of ``chunk_batch`` chunks, padded to that batch's own
+bucket (``_convert_rows``): HuBERT -> top-k retrieval blend -> 2x frame repeat ->
 protect mix (f0 models) -> synthesizer, then the pad trim; each row reads
 its samples and pitch from its own song. Last, per song
 (``_finish_song``): the RMS-envelope gain over the whole song, per-chunk
 int16 pack, the optional output resample and the final normalize.
 
 Each phase is a span of utils/tracing.py: ``polgen.convert`` (the
-request), ``polgen.prepare`` (``polgen.highpass``, ``polgen.plan``,
-``polgen.upload``, ``polgen.f0``, ``polgen.f0_file``), ``polgen.chunk_batch``
+request), ``polgen.prepare`` (``polgen.upload``, ``polgen.highpass``,
+``polgen.f0``, ``polgen.f0_file``, ``polgen.plan``), ``polgen.chunk_batch``
 (``polgen.rows``, ``polgen.noise``, ``polgen.hubert``, ``polgen.retrieval``,
 ``polgen.protect``, the synthesizer's ``polgen.enc_p``, ``polgen.flow`` and
 ``polgen.decoder``, ``polgen.trim``) and ``polgen.finish``
@@ -43,6 +45,8 @@ and the synthesizer there, and the trimmed rows come back in row order.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
@@ -57,13 +61,14 @@ from ..models.nsf import pack_decoder_weights
 from ..models.rmvpe import pack_rmvpe_weights, pad_frames_to_32, rmvpe_mel, rmvpe_salience
 from ..models.synthesizer import SynthesizerConfig, synthesizer_infer
 from ..ops.f0_utils import coarse_f0, salience_to_f0
-from ..ops.filters import highpass_pad_quant
+from ..ops.filters import highpass_filtfilt
+from ..ops.highpass import highpass_pad_quant, pad_quant_plain
 from ..parallel.mesh import Mesh, replicate, shard_batch, shard_hubert_params
 from ..retrieval.topk import retrieval_blend
 from ..utils.progress import NULL_PROGRESS, ProgressReporter
 from ..utils.tracing import count, span, spanned
 from .batch_cover import BatchCoverMixin, bucket_class
-from .chunking import ChunkPlan, plan_chunks
+from .chunking import ChunkPlan, is_cut, plan_chunks
 from .config import ConversionOptions, EngineConfig
 from .crepe_method import crepe_f0
 from .f0_file import apply_f0_file, coarse_f0_np
@@ -84,6 +89,23 @@ def torch_noise(seed: int, chunk_id: int, lat_shape: tuple, nsf_len: int,
     eps = torch.randn(lat_shape, generator=g, device=device)
     nsf = torch.randn(nsf_len, generator=g, device=device)
     return eps, nsf
+
+
+def _raw_signal(audio16k) -> np.ndarray:
+    """The song as it came, contiguous: float32 stays, else float64."""
+    a = np.asarray(audio16k)
+    return np.ascontiguousarray(a if a.dtype == np.float32 else a.astype(np.float64))
+
+
+def _host_signal(audio16k) -> np.ndarray:
+    """The host's high-passed signal (scipy, float64), as float32."""
+    return highpass_filtfilt(np.asarray(audio16k, np.float64)).astype(np.float32)
+
+
+def _plan_on_host(audio16k, eng: EngineConfig):
+    """The host's high-passed float32 signal and its chunk plan."""
+    audio = _host_signal(audio16k)
+    return audio, plan_chunks(audio, eng)
 
 
 @dataclasses.dataclass
@@ -459,27 +481,69 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
 
     @spanned("polgen.prepare")
     def _prepare_song(self, audio16k: np.ndarray, opts: ConversionOptions) -> SongPrep:
-        """High-pass, pad and quantize on the host, plan the chunks, upload
-        and dequantize the padded signal once, and run the F0 pass, then
-        the F0 file's override where opts name one."""
+        """High-pass, pad, quantize and dequantize the song into the F0
+        pass's buffer, issue the F0 pass, then the F0 file's override where
+        opts name one, and plan the chunks.
+
+        On the card the buffer comes from the card's own high-pass
+        (ops/highpass.py), uploaded raw from pinned memory, and the F0 pass
+        is issued with no wait on the device. A song long enough to be cut
+        is planned on the host's high-passed signal (ops/filters.py: scipy),
+        made meanwhile by a worker thread that is joined last: the cut
+        points are near-ties that the two filters' rounding (~1e-7 of the
+        peak apart) decide differently. A shorter signal's plan does not
+        read its values; it takes the card's signal, copied back while the
+        F0 pass runs. On the CPU everything is the host's, as the CPU tests
+        hold the buffer against the JAX package."""
         eng = self.engine
-        with span("polgen.highpass"):
-            audio, qbuf, inv_scale, padded_len = highpass_pad_quant(
-                np.asarray(audio16k, np.float64), eng.t_pad, eng.window
-            )
-        with span("polgen.plan"):
-            plan = plan_chunks(audio, eng)
-        with span("polgen.upload"):
-            buf = torch.from_numpy(qbuf).to(self.device).float() * float(inv_scale)
-        pitch = pitchf = None
-        if self.synth_cfg.use_f0:
-            with span("polgen.f0"):
-                pitch, pitchf = self.compute_f0(buf, opts, padded_len)
-            if opts.f0_file:
-                with span("polgen.f0_file"):
-                    pitch, pitchf = self._apply_f0_file(pitchf, opts,
-                                                        padded_len // eng.window)
+        if self.device.type != "cuda":
+            with span("polgen.highpass"):
+                audio = _host_signal(audio16k)
+                q, inv, _ = pad_quant_plain(torch.from_numpy(audio), eng.t_pad, eng.window)
+            with span("polgen.upload"):
+                buf = q.to(self.device).float() * inv
+            pitch, pitchf = self._f0_pass(buf, len(audio16k), opts)
+            with span("polgen.plan"):
+                plan = plan_chunks(audio, eng)
+            return SongPrep(audio, plan, buf, pitch, pitchf)
+        with contextlib.ExitStack() as stack:
+            planned = None
+            if is_cut(len(audio16k), eng):
+                worker = stack.enter_context(concurrent.futures.ThreadPoolExecutor(1))
+                planned = worker.submit(_plan_on_host, audio16k, eng)
+            with span("polgen.upload"):
+                x = torch.from_numpy(_raw_signal(audio16k)).pin_memory()
+                x = x.to(self.device, non_blocking=True)
+            with span("polgen.highpass"):
+                card_audio, _, _, buf = highpass_pad_quant(x, eng.t_pad, eng.window)
+                if planned is None:
+                    card_audio = card_audio.to("cpu", non_blocking=True)
+                    copied = torch.cuda.Event()
+                    copied.record(torch.cuda.current_stream(self.device))
+            pitch, pitchf = self._f0_pass(buf, len(audio16k), opts)
+            with span("polgen.plan"):
+                if planned is None:
+                    copied.synchronize()
+                    audio = card_audio.numpy()
+                    plan = plan_chunks(audio, eng)
+                else:
+                    audio, plan = planned.result()
         return SongPrep(audio, plan, buf, pitch, pitchf)
+
+    def _f0_pass(self, buf, n: int, opts: ConversionOptions):
+        """The F0 pass over the song's buffer (n samples before the pad),
+        then the F0 file's override: (coarse pitch, pitchf), or (None,
+        None) for a no-f0 model."""
+        if not self.synth_cfg.use_f0:
+            return None, None
+        padded_len = n + 2 * self.engine.t_pad
+        with span("polgen.f0"):
+            pitch, pitchf = self.compute_f0(buf, opts, padded_len)
+        if opts.f0_file:
+            with span("polgen.f0_file"):
+                pitch, pitchf = self._apply_f0_file(pitchf, opts,
+                                                    padded_len // self.engine.window)
+        return pitch, pitchf
 
     @spanned("polgen.chunk_batch")
     def _convert_rows(self, entries, bucket: int, opts: ConversionOptions,

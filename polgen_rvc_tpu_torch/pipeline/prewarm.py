@@ -31,12 +31,12 @@ class PrewarmMixin:
     """Prewarm half of VoiceConverter (engine.py hosts the converter)."""
 
     def prewarm_kernels(self, opts: ConversionOptions) -> tuple:
-        """The kernels a convert with these options launches: the
-        synthesizer's three always, RMVPE's U-Net chain and BiGRU scan for
+        """The kernels a convert with these options launches, in its order:
+        the song's high-pass always, RMVPE's U-Net chain and BiGRU scan for
         rmvpe+ and rmvpe, the Viterbi decode for mangio-crepe (f0 models
-        only)."""
+        only), the synthesizer's three always."""
         f0 = F0_KERNELS.get(opts.f0_method, ()) if self.synth_cfg.use_f0 else ()
-        return f0 + SYNTH_KERNELS
+        return ("highpass",) + f0 + SYNTH_KERNELS
 
     @torch.inference_mode()
     @spanned("polgen.prewarm")

@@ -1115,3 +1115,130 @@ def test_two_ranks_on_one_card_give_one_process_bytes(dev, tmp_path):
     refs = vc.convert_batch([np.load(p) for p in paths], ConversionOptions(**opts))
     for i, (ref, _) in enumerate(refs):
         np.testing.assert_array_equal(np.load(tmp_path / f"song{i}.npy"), ref)
+
+
+# ---- the conversion head (ops/highpass.py) ----------------------------------
+
+def _hp_signal(n, seed=0):
+    rng = np.random.default_rng(seed + n)
+    t = np.arange(n) / 16000
+    return (0.4 * np.sin(2 * np.pi * 220.0 * t * (1 + 0.01 * np.sin(2 * np.pi * 5 * t)))
+            + 0.2 * np.sin(2 * np.pi * 20.0 * t)
+            + 0.01 * rng.standard_normal(n)).astype(np.float32)
+
+
+def _hp_lengths():
+    from polgen_rvc_tpu_torch.ops import highpass as hp
+
+    one_tile = hp.TILE - 2 * hp.PADLEN
+    return (hp.PADLEN + 1, 100, one_tile - 1, one_tile, one_tile + 1, 32000, 163840)
+
+
+@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("t_pad", [0, 250, 16000])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_highpass_kernel_matches_twin(dev, case, t_pad, dtype):
+    """Every length around a tile, a pad wider than the signal, float32 and
+    float64 input: the kernel's signal, int16 buffer, inverse scale and
+    dequantized buffer are the twin's bit for bit (the same operations in
+    the same order: lfilter's steps, the carry's sums, numpy's rounding)."""
+    from polgen_rvc_tpu_torch.ops import highpass as hp
+
+    x = _hp_signal(_hp_lengths()[case]).astype(dtype)
+    got, n = _launched("highpass", lambda: hp.highpass_pad_quant(
+        torch.from_numpy(x).to(dev), t_pad))
+    want = hp.highpass_pad_quant_plain(torch.from_numpy(x), t_pad)
+    assert n == 1
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w)
+
+
+def test_highpass_kernel_on_a_240_s_song(dev):
+    """A 240 s song of the benchmark's generator: the kernel against its
+    twin (bit for bit) and against the host's scipy head (the int16 buffer
+    within one count, on at most 2e-3 of the samples: the blocked scan and
+    scipy's sequential pass round differently, ~1e-7 of the peak apart);
+    the launch counter and highpass_samples_card move; the converter's
+    plan (from the host's own float32 signal) is the host's, and its
+    buffer the kernel's."""
+    import json
+
+    from benchmark.signals import Inputs
+    from polgen_rvc_tpu_torch.ops import filters
+    from polgen_rvc_tpu_torch.ops import highpass as hp
+    from polgen_rvc_tpu_torch.pipeline.chunking import plan_chunks
+    from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions, EngineConfig
+    from polgen_rvc_tpu_torch.pipeline.factory import build_synthetic_converter
+    from polgen_rvc_tpu_torch.utils.tracing import counters
+
+    traffic = json.loads(open("benchmark/traffic/songs.json").read())
+    x = Inputs(traffic, 4000000777).signal(3, 0)
+    assert x.shape[0] == 240 * 16000
+    before = counters()
+    got = hp.highpass_pad_quant(torch.from_numpy(x).to(dev), 16000)
+    torch.cuda.synchronize()
+    after = counters()
+    assert after["launches.highpass"] - before.get("launches.highpass", 0) == 1
+    assert (after["highpass_samples_card"] - before.get("highpass_samples_card", 0)
+            == x.shape[0])
+    twin = hp.highpass_pad_quant_plain(torch.from_numpy(x), 16000)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, twin))
+    h_audio, h_q, h_inv, _ = filters.highpass_pad_quant(x, 16000)
+    audio = got[0].cpu().numpy()
+    assert np.abs(audio - h_audio).max() <= 1e-6 * np.abs(h_audio).max()
+    dq = np.abs(got[1].cpu().numpy().astype(np.int32) - h_q)
+    assert dq.max() <= 1 and (dq > 0).mean() <= 2e-3
+
+    vc = build_synthetic_converter(tiny=True, sr=48000, engine=EngineConfig(),
+                                   device=dev, use_f0=False)
+    song = vc._prepare_song(x, ConversionOptions())
+    assert song.plan == plan_chunks(h_audio, EngineConfig())
+    assert np.array_equal(song.audio, h_audio)
+    assert torch.equal(song.buf, got[3])
+
+
+@pytest.mark.parametrize("seconds", [5.0, 2.0], ids=["cut", "not_cut"])
+def test_prepare_song_issues_the_f0_pass_without_a_host_sync(dev, monkeypatch, seconds):
+    """The card is held busy by a sleep queued first; _prepare_song uploads
+    the song, launches the high-pass and reaches the F0 pass while the
+    sleep still runs (nothing waited on the card), under torch's sync
+    debug mode set to raise on any synchronizing call; the F0 pass then
+    reads the kernel's buffer. A song the planner cuts (t_max 3 s here) is
+    planned on the host's signal, a shorter one on the card's."""
+    from polgen_rvc_tpu_torch.ops import filters
+    from polgen_rvc_tpu_torch.ops import highpass as hp
+    from polgen_rvc_tpu_torch.pipeline.chunking import plan_chunks
+    from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions
+
+    vc = _tiny_converter(device=dev)
+    opts = ConversionOptions(index_rate=0.5, protect=0.33, volume_envelope=0.25)
+    song = _mesh_song(seconds)
+    vc._prepare_song(song, opts)   # builds and loads what it launches
+    torch.cuda.synchronize()
+    seen = {}
+    real_f0 = vc.compute_f0
+
+    def f0_pass(buf, *a, **k):
+        torch.cuda.set_sync_debug_mode("default")
+        seen["sleeping"] = not torch.cuda.current_stream(dev).query()
+        seen["buf"] = buf.clone()
+        return real_f0(buf, *a, **k)
+
+    monkeypatch.setattr(vc, "compute_f0", f0_pass)
+    torch.cuda._sleep(2_000_000_000)  # ~1 s
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prep = vc._prepare_song(song, opts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert seen["sleeping"], "the host waited for the card before the F0 pass"
+    card = hp.highpass_pad_quant(torch.from_numpy(song).to(dev), vc.engine.t_pad,
+                                 vc.engine.window)
+    assert torch.equal(seen["buf"], card[3]) and torch.equal(prep.buf, card[3])
+    host = filters.highpass_pad_quant(song, vc.engine.t_pad)[0]
+    want = host if seconds == 5.0 else card[0].cpu().numpy()
+    assert np.array_equal(prep.audio, want)
+    assert prep.plan == plan_chunks(want, vc.engine)
+    assert len(prep.plan.chunks) == (3 if seconds == 5.0 else 1)

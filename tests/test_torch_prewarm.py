@@ -97,12 +97,15 @@ def test_prewarm_runs_the_fcpe_and_crepe_f0_passes(monkeypatch):
         n = vc.prewarm(song, opts)
         assert ran == [want], (method, ran)
         assert n == 1 + 1 + 1  # F0 pass, one bucket, gain
-    assert vc.prewarm_kernels(ConversionOptions(f0_method="mangio-crepe"))[0] == "viterbi"
+    assert vc.prewarm_kernels(ConversionOptions(f0_method="mangio-crepe"))[:2] == (
+        "highpass", "viterbi")
     assert vc.prewarm_kernels(ConversionOptions()) == (
-        "unet_chain", "gru_scan", "resblock_group", "conv_transpose", "band_attention")
-    assert vc.prewarm_kernels(ConversionOptions(f0_method="rmvpe"))[:2] == (
-        "unet_chain", "gru_scan")
-    assert len(vc.prewarm_kernels(ConversionOptions(f0_method="fcpe"))) == 3
+        "highpass", "unet_chain", "gru_scan", "resblock_group", "conv_transpose",
+        "band_attention")
+    assert vc.prewarm_kernels(ConversionOptions(f0_method="rmvpe"))[:3] == (
+        "highpass", "unet_chain", "gru_scan")
+    assert vc.prewarm_kernels(ConversionOptions(f0_method="fcpe")) == (
+        "highpass", "resblock_group", "conv_transpose", "band_attention")
 
 
 class _FakeNvcc:
