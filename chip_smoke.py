@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 It drives five paths: rmvpe+ (the main path), mangio-crepe, fcpe, a no-f0
-model and a v1 32 kHz model, the main and no-f0 paths again on device
+model and a v1 32 kHz model, the main and no-f0 paths again on data
 meshes, and batch covers split over two processes, and holds each of the
-seven kernels against its plain twin.
+seven kernels against its plain twin. It checks the card; the benchmark
+(BENCHMARK.json, benchmark/) measures it.
 Phases, each printing one JSON line (any failure raises; exit code != 0):
   1. card:     nvidia-smi name and power limit, torch/CUDA versions, the
                parallel nvcc build of every kernel from csrc/ and its time,
@@ -16,10 +17,8 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                csrc/highpass.cu) on bench_song at 150 and 240 s: its four
                outputs equal the plain twin's bit for bit; the int16 buffer
                within one count of the host's scipy head on at most 2e-3 of
-               the samples; its device time by CUDA events (mean of 20) and
-               each of its kernels' under the profiler, beside its byte
-               bounds (as designed, and each input and output once), the
-               twin's and the host head's wall time.
+               the samples; its device time by CUDA events (mean of 20),
+               the twin's and the host head's wall time.
   2. main:     the main path, as bench.py times it on an accelerator:
                build_synthetic_converter(tiny=False, sr=48000,
                index_vectors=65536, bf16 engine at bench's tiers) and
@@ -34,8 +33,6 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                The output must have the planned length, not be silent,
                and repeat the warm-up convert's bytes; its SHA-256 is
                printed, to compare two checkouts' outputs.
-  profile:     one more convert under torch.profiler: the device's busy
-               and idle share of the wall time, and kernels by device time.
   batch:       convert_batch on the main path's converter over four songs
                cut from the song (60, 41, 23 and 9 s), the chunks sorted by
                bucket class and packed two rows a batch, each batch at its
@@ -44,8 +41,7 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                chain 112, BiGRU scan 1, high-pass 1); every song equal to its serial
                convert byte for byte, also where a chunk rides another
                bucket packed (the decoder's conv_pre runs at one fixed
-               length); wall, RTF and
-               kernel time of the packed call and of the four serial
+               length); wall of the packed call and of the four serial
                converts, peak memory; conv_pre's time at each packed
                bucket's frames, at the fixed length and at its own.
   f0_file:     the main path's converter with an F0 file of 10 ms lines
@@ -53,7 +49,7 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                equals the host coarse_f0_np of the file's interpolation
                exactly; one warm-up, the counts set to 0, a timed convert
                of the 60 s song (the main path's launches), which repeats
-               the warm-up's bytes; its profile; then convert_batch over
+               the warm-up's bytes; then convert_batch over
                the batch phase's songs with the file, each song equal to
                its serial convert byte for byte.
   checkpoint:  the main path's model set written as files (torch.save'd
@@ -107,8 +103,7 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                (with_crepe=True) and f0_method="mangio-crepe" at hop 128:
                viterbi launches exactly once a convert, the resblock group
                36 times, the synthesizer's other kernels launch,
-               unet_chain (RMVPE's) does not; then its
-               profile (crepe_profile), with each CREPE layer's conv and
+               unet_chain (RMVPE's) does not; each CREPE layer's conv and
                epilogue timed alone on one 2,048-frame slab.
   3. kernels:  right after the crepe path, every kernel's wrapper again
                on the very inputs its path gives it (recorded during one
@@ -121,12 +116,10 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                conv into bf16 h, into the fp32 block output and into x's
                dtype; conv-transpose and the resblock group: the fp32
                route beside the bf16 one);
-               timed beside the plain twin, a single PyTorch call where one
-               computes the same function, and the bound (bytes over
-               3.35 TB/s or operations over the peak rate of the operands'
-               type). Per shape numbers included; for the resblock group
-               and the U-Net chain (per level) also their TFLOP/s, the HBM
-               bytes their design moves, and a cuDNN yardstick (the
+               its time alone (CUDA events) beside the plain twin's and a
+               single PyTorch call's where one computes the same function.
+               Per shape numbers included; for the resblock group and the
+               U-Net chain (per level) also a cuDNN yardstick (the
                group's 18 convs as bf16 F.conv1d calls, the level's 8 3x3
                convs and its 1x1 shortcut as bf16 F.conv2d calls); for the
                U-Net chain the tile and grid of each level's launches; for
@@ -135,14 +128,13 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                its launch timed apart, the launch's us a step (its serial
                floor), and cuDNN's nn.GRU on the same input and weights as
                library_ms, within 1e-5 of the kernel; for band attention
-               its TFLOP/s, its CTAs and those that exit early (rows all
-               past the length), and a flash-SDPA yardstick on the same q,
+               its CTAs and those that exit early (rows all past the
+               length), and a flash-SDPA yardstick on the same q,
                k, v over each row's valid length (no relative terms).
   fcpe:        as the crepe path, with the full FCPE (12 layers x 512 channels,
                with_fcpe=True) and f0_method="fcpe": the resblock group 36
                times, conv-transpose 4, band attention, neither unet_chain
-               nor viterbi; then its profile (fcpe_profile), with the FCPE
-               pass's share of the convert's kernel time.
+               nor viterbi.
   nof0:        the 48 kHz v2 model built with use_f0=False: the same
                launch counts, and no F0 pass runs.
   v1_32k:      a v1 32 kHz f0 model of RVC-Project's configs/v1/32k.json
@@ -180,24 +172,21 @@ Phases, each printing one JSON line (any failure raises; exit code != 0):
                on the card and on the CPU: 9 heads each, every logit and
                feature map within 1e-4 of the CPU map's largest |value|;
                the card's wall time of one call.
-  mesh:        last, after every timed single-card path: the
-               counterpart of the JAX package's dryrun_multichip at full
-               width, on the main path's song, engine and options
-               (parallel/mesh.py), every converter over one making of the
-               main and no-f0 models' weights. (a) Meshes that name cuda:0
-               several times: 2x2 (data 2 x model 2: one row a data shard,
-               HuBERT tensor-parallel) with convert, convert_batch of the
-               batch songs and the no-f0 model's convert, held to
-               SPLIT_BOUND and NOF0_SPLIT_BOUND against the unsharded
-               converter; 2x1 (HuBERT whole) with convert and
-               convert_batch, each song byte for byte the unsharded
-               output; 1x1, byte for byte the main path's output. (b) Where the machine shows two cards or more, the
-               same runs on make_mesh() over the distinct cards; else a
-               "distinct_cards": false line. Each run: wall, kernel ms
-               under the profiler, launches (the synthesizer's kernels
-               n_data times main's per batch, the U-Net chain 112 a song),
-               int16 differences and mel distortion against the unsharded
-               converter's output (< 0.5 dB), cuda_build's counts.
+  mesh:        last, after every single-card path: the counterpart of the
+               JAX package's dryrun_multichip at full width, on the main
+               path's song, engine and options (parallel/mesh.py: data
+               shards only), every converter over one making of the main
+               and no-f0 models' weights. (a) Meshes that name cuda:0
+               several times: 2x1 (one row a data shard) with convert,
+               convert_batch of the batch songs and the no-f0 model's
+               convert; 1x1 with convert. (b) Where the machine shows two
+               cards or more, the same runs as 2x1 on make_mesh() over the
+               distinct cards; else a "distinct_cards": false line. Every
+               rendition byte for byte the unsharded converter's; each run:
+               launches (the synthesizer's kernels n_data times main's per
+               batch, the U-Net chain 112 a song), int16 differences and
+               mel distortion against the unsharded output, cuda_build's
+               counts.
   hosts:       last: batch covers split over two processes (the
                counterpart of the JAX package's tools/dcn_dryrun.py;
                parallel/hosts.py), python3 chip_smoke.py --hosts-child
@@ -229,8 +218,6 @@ import time
 
 import numpy as np
 
-PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor core / CUDA core
 SONG_SECONDS = 60.0
 BENCH_OPTS = dict(index_rate=0.5, protect=0.33, volume_envelope=0.25)
 BENCH_TIERS = dict(x_pad=1, x_query=6, x_center=30, x_max=32, chunk_batch=2,
@@ -340,10 +327,6 @@ def timed_once(fn) -> float:
     return start.elapsed_time(end)
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def tree_tensors(tree):
     import torch
 
@@ -355,46 +338,6 @@ def tree_tensors(tree):
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from tree_tensors(v)
-
-
-def profile_convert(vc, song, opts) -> dict:
-    """One more convert under torch.profiler: the device's busy share of the
-    wall time (sum of kernel times; one stream, so kernels do not overlap)
-    and the kernels by device time. The port's kernels show under their
-    mangled names (pair_kernel, convt_kernel, band_attention_kernel,
-    unet_conv3x3_kernel)."""
-    return profile_call(lambda: vc.convert(song, opts))
-
-
-def profile_call(fn) -> dict:
-    """fn() once under torch.profiler, tracing the device only (host ops
-    untraced, which keeps the tracing cost off the host): wall time, kernel
-    time, idle share and the kernels by device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        kernels.append({"name": evt.key[:80], "calls": evt.count, "ms": us / 1e3})
-    kernels.sort(key=lambda k: -k["ms"])
-    busy_ms = sum(k["ms"] for k in kernels)
-    if not busy_ms > 0:
-        raise AssertionError("the profiler saw no device time")
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
-            "device_idle_share": (1.0 - busy_ms / (wall * 1e3)) if busy_ms else None,
-            "kernels": kernels}
 
 
 def crepe_layer_times(params, compute_dtype) -> list:
@@ -430,63 +373,9 @@ def crepe_layer_times(params, compute_dtype) -> list:
     return rows
 
 
-def packed_tensors(tree, keys=("w_taps", "w_mat", "b")):
-    """The tensors a kernel reads from a packed parameter tree: the packed
-    weight layouts and the biases (not the fp32 originals beside them)."""
-    import torch
-
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            if k in keys and isinstance(v, torch.Tensor):
-                yield v
-            else:
-                yield from packed_tensors(v, keys)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from packed_tensors(v, keys)
-
-
 def abs_stats(ref) -> dict:
     a = ref.abs().float().flatten()
     return {"max_abs_ref": float(a.max()), "median_abs_ref": float(a.median())}
-
-
-def resblock_design_bytes(x, dilations) -> int:
-    """HBM bytes one resblock group moves in the pair kernel's design: per
-    launch its input read once (x's type for a resblock's first pair, else
-    the fp32 stream), its result written once (the fp32 stream or running
-    sum; x's type for the group's output), the fp32 running sum read where
-    it is added. The residual's second read of the input is counted as an
-    L2 hit, the weights apart."""
-    n, xs = x.numel(), x.element_size()
-    total = 0
-    for r, dils in enumerate(dilations):
-        for i in range(len(dils)):
-            total += n * (xs if i == 0 else 4)
-            if i < len(dils) - 1:
-                total += 4 * n
-            else:
-                total += (xs if r == len(dilations) - 1 else 4) * n + (4 * n if r else 0)
-    return total
-
-
-def unet_design_bytes(x, blocks) -> int:
-    """HBM bytes one U-Net level moves in the chain kernel's design: per
-    launch its input read once (x's type for the first block, bf16 h for
-    every conv2, the fp32 block output after), the residual or shortcut
-    input read once (x's type, then fp32), and its output written once
-    (bf16 h, the fp32 block output, x's type for the last). The halo and
-    per-tile restaging of the input count as L2 hits, the weights apart."""
-    b, c, t, w = x.shape
-    n, xs = b * t * w, x.element_size()
-    total, ci, cs = 0, c, xs
-    for i, blk in enumerate(blocks):
-        co = blk["conv1"]["w"].shape[0]
-        last = i == len(blocks) - 1
-        total += n * (ci * cs + co * 2)                              # conv1
-        total += n * (co * 2 + ci * cs + co * (xs if last else 4))   # conv2
-        ci, cs = co, 4
-    return total
 
 
 def structured_log_obs(t: int, n: int, seed: int = 0):
@@ -591,28 +480,18 @@ def check_kernels(calls: dict) -> dict:
             raise AssertionError(f"single launch: max_abs_err {err} > {tol}")
         return {"max_abs_err": err, "tolerance": tol, **abs_stats(ref)}
 
-    def add(name, err, tol, ref, ms, plain_ms, lib_ms, flops, byts, dtype,
-            count, shape, one=None):
-        dtype = str(dtype).removeprefix("torch.")
-        bytes_ms = byts / PEAK_BYTES_PER_S * 1e3
-        ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    def add(name, err, tol, ref, ms, plain_ms, lib_ms, count, shape, one=None):
         s = out.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                   "library_ms": None if lib_ms is None else 0.0,
-                                  "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                                  "flops": 0.0, "bytes": 0.0, "shapes": []})
+                                  "shapes": []})
         s["max_abs_err"] = max(s["max_abs_err"], err)
-        for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                     ("bound_ms", max(bytes_ms, ops_ms)), ("bytes_ms", bytes_ms),
-                     ("ops_ms", ops_ms), ("flops", flops), ("bytes", byts)):
-            s[k] += v * count
+        s["ms"] += ms * count
+        s["plain_ms"] += plain_ms * count
         if lib_ms is not None:
             s["library_ms"] += lib_ms * count
-        s["bound_by"] = "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations"
         s["shapes"].append({"shape": shape, "calls": count, "max_abs_err": err,
                             "tolerance": tol, **abs_stats(ref), "ms": ms,
-                            "plain_ms": plain_ms, "library_ms": lib_ms,
-                            "bound_ms": max(bytes_ms, ops_ms),
-                            "peak": dtype, "checks": one})
+                            "plain_ms": plain_ms, "library_ms": lib_ms, "checks": one})
         if not err <= tol:
             raise AssertionError(f"{name} {shape}: max_abs_err {err} > {tol}")
 
@@ -666,16 +545,12 @@ def check_kernels(calls: dict) -> dict:
 
         cudnn_ms = cuda_ms(cudnn_convs)
         cudnn_convs_ms += cudnn_ms * e["count"]
-        flops = sum(2.0 * b * c * c * k * t * 2 * len(d) for k, d in zip(ks, ds))
-        ms = cuda_ms(lambda: rg.fused_resblock_group(x, params, ks, ds))
-        moved = resblock_design_bytes(x, ds) + nbytes(*packed_tensors(params))
-        one.update({"cudnn_18_convs_ms": cudnn_ms, "tflop_per_s": flops / ms / 1e9,
-                    "design_hbm_bytes": moved, "design_tb_per_s": moved / ms / 1e9})
-        byts = 2 * nbytes(x) + nbytes(*packed_tensors(params))
-        add("resblock_group", err, tol, ref, ms,
+        one["cudnn_18_convs_ms"] = cudnn_ms
+        add("resblock_group", err, tol, ref,
+            cuda_ms(lambda: rg.fused_resblock_group(x, params, ks, ds)),
             cuda_ms(lambda: rg.resblock_group_plain(x, params, ks, ds,
                                                     operand_dtype=bf16)),
-            None, flops, byts, bf16, e["count"], [b, c, t, str(x.dtype)], one)
+            None, e["count"], [b, c, t, str(x.dtype)], one)
     if "resblock_group" in out:
         out["resblock_group"]["cudnn_convs_ms"] = cudnn_convs_ms
 
@@ -684,7 +559,7 @@ def check_kernels(calls: dict) -> dict:
         kw = e["kwargs"]
         geo = dict(stride=kw["stride"], padding=kw["padding"])
         b, c_in, t = x.shape
-        c_out, k = w.shape[1], w.shape[2]
+        c_out = w.shape[1]
         ref = ct.conv_transpose1d_plain(x.float(), w, bias, operand_dtype=bf16, **geo)
         # the fp32 route: the same bf16-rounded operands, fp32 order only
         one = {"fp32_route": single(ct.conv_transpose1d(x.float(), w, bias, **kw), ref)}
@@ -701,9 +576,7 @@ def check_kernels(calls: dict) -> dict:
             cuda_ms(lambda: ct.conv_transpose1d_plain(x, w, bias,
                                                       operand_dtype=bf16, **geo)),
             cuda_ms(lambda: F.conv_transpose1d(x, wb, bb, **geo)),
-            2.0 * b * c_in * c_out * k * t,
-            nbytes(x, kw["taps"], bias) + b * c_out * t * kw["stride"] * x.element_size(),
-            bf16, e["count"], [b, c_in, c_out, t, kw["stride"], str(x.dtype)], one)
+            e["count"], [b, c_in, c_out, t, kw["stride"], str(x.dtype)], one)
 
     for e in calls["band_attention"].values():
         q, k, v, rk, rv, lens, window = e["args"]
@@ -738,8 +611,6 @@ def check_kernels(calls: dict) -> dict:
         if not band_err <= band_tol:
             raise AssertionError(f"band_attention rel-value term: {band_err} > {band_tol}")
         lens_l = [min(int(n), t) for n in lens.tolist()]
-        flops = sum(4.0 * n * n * dk for n in lens_l)
-        ms = cuda_ms(lambda: ba.band_attention(q, k, v, rk, rv, lens, window))
         # yardstick: flash SDPA on the same q, k, v over each row's valid
         # keys and queries, rows of one length in one call, no relative terms
         groups = {}
@@ -757,15 +628,13 @@ def check_kernels(calls: dict) -> dict:
         # exit before any key tile
         blocks = -(-t // ba.BLOCK_ROWS)
         early = sum(2 * (blocks - -(-n_valid // ba.BLOCK_ROWS)) for n_valid in lens_l)
-        # the bound takes the peak of the type the main path hands the
-        # function (bf16 in a bf16 engine)
-        add("band_attention", err, tol, ref * valid, ms,
+        add("band_attention", err, tol, ref * valid,
+            cuda_ms(lambda: ba.band_attention(q, k, v, rk, rv, lens, window)),
             cuda_ms(lambda: ba.band_attention_plain(q, k, v, rk, rv, lens, window)),
-            None, flops, nbytes(q, k, v, rk, rv, lens) + nbytes(q),
-            q.dtype, e["count"], [bh, t, dk, lens_l],
+            None, e["count"], [bh, t, dk, lens_l],
             {"rel_value_term": {"max_abs_err": band_err, "tolerance": band_tol,
                                 **abs_stats(band_ref * valid)},
-             "tflop_per_s": flops / ms / 1e9, "sdpa_flash_ms": sdpa_ms,
+             "sdpa_flash_ms": sdpa_ms,
              "operand_copies_ms": copies_ms,
              "contiguous": [a.is_contiguous() for a in (q, k, v)],
              "ctas": 2 * blocks * bh, "early_exit_ctas": early})
@@ -819,19 +688,13 @@ def check_kernels(calls: dict) -> dict:
         one["conv2_last_x_dtype"] = {"max_abs_err": float((l_got - l_ref).abs().max()),
                                      **abs_stats(l_ref)}
         del xc, h_ref, h_got, h_last, cur_in, l_ref, l_got
-        flops = 0.0
         convs = []
-        ci = c
         for blk in blocks:
-            co = blk["conv1"]["w"].shape[0]
-            flops += 2.0 * 9 * b * t * w * (ci * co + co * co)
             convs += [(blk["conv1"]["w"].to(bf16), blk["conv1"]["b"].to(bf16), 1),
                       (blk["conv2"]["w"].to(bf16), blk["conv2"]["b"].to(bf16), 1)]
             if "shortcut" in blk:
-                flops += 2.0 * b * t * w * ci * co
                 convs.append((blk["shortcut"]["w"].to(bf16),
                               blk["shortcut"]["b"].to(bf16), 0))
-            ci = co
         xb = x.to(bf16)
         cin_of = [cv[0].shape[1] for cv in convs]
         inputs = {ci: xb if ci == c else torch.randn(b, ci, t, w, device=x.device,
@@ -843,18 +706,13 @@ def check_kernels(calls: dict) -> dict:
 
         cudnn_ms = cuda_ms(cudnn_convs)
         unet_cudnn_ms += cudnn_ms * e["count"]
-        ms = cuda_ms(lambda: uc.convblock_chain(x, blocks))
         tile = uc.unet_conv3x3_tile(c_out, w)
-        moved = unet_design_bytes(x, blocks) + nbytes(*packed_tensors(blocks))
-        one.update({"cudnn_convs_ms": cudnn_ms, "tflop_per_s": flops / ms / 1e9,
-                    "tile": tile, "grid": [-(-t // tile["tt"]), c_out // tile["bm"], b],
-                    "design_hbm_bytes": moved, "design_tb_per_s": moved / ms / 1e9})
+        one.update({"cudnn_convs_ms": cudnn_ms, "tile": tile,
+                    "grid": [-(-t // tile["tt"]), c_out // tile["bm"], b]})
         del inputs
-        add("unet_chain", err, tol, ref, ms,
+        add("unet_chain", err, tol, ref, cuda_ms(lambda: uc.convblock_chain(x, blocks)),
             cuda_ms(lambda: uc.convblock_chain_plain(x, blocks, operand_dtype=bf16)),
-            None, flops,
-            nbytes(x, *packed_tensors(blocks)) + b * c_out * t * w * x.element_size(),
-            bf16, e["count"], [b, c, c_out, t, w, str(x.dtype)], one)
+            None, e["count"], [b, c, c_out, t, w, str(x.dtype)], one)
     if "unet_chain" in out:
         out["unet_chain"]["cudnn_convs_ms"] = unet_cudnn_ms
 
@@ -865,11 +723,7 @@ def check_kernels(calls: dict) -> dict:
         ref = vt.viterbi_path_plain(log_obs, n)
         plain_ms = timed_once(lambda: vt.viterbi_path_plain(log_obs, n))
         mismatches = int((got != ref).sum())
-        # per step and bin: 23 candidate adds and compares, the teleport
-        # compare, + obs, the block max's compare and the renorm subtract,
-        # over the n - 1 steps this input runs; log_obs rows < n read once,
-        # the int32 path written once
-        steps = max(min(n, t_len) - 1, 0)
+        steps = max(min(n, t_len) - 1, 0)  # the forward's steps on this input
         # the three launches of one call timed alone, each on its
         # predecessor's output: the forward recursion, the backpointers,
         # the walk
@@ -881,8 +735,7 @@ def check_kernels(calls: dict) -> dict:
         split["forward_us_per_step"] = 1e3 * split["forward_ms"] / max(steps, 1)
         add("viterbi", float((got - ref).abs().max()), 0.0, ref,
             cuda_ms(lambda: vt.viterbi_path(log_obs, n)), plain_ms,
-            None, 50.0 * steps * bins, min(n, t_len) * bins * 4 + t_len * 4,
-            torch.float32, e["count"], [t_len, bins, n],
+            None, e["count"], [t_len, bins, n],
             {"path_mismatches": mismatches, **split})
         # random CREPE weights give a path that barely moves: the same shape
         # again on a random-walk track with all-tie frames (not a launch of
@@ -892,8 +745,8 @@ def check_kernels(calls: dict) -> dict:
         ref = vt.viterbi_path_plain(walk, n)
         plain_ms = timed_once(lambda: vt.viterbi_path_plain(walk, n))
         add("viterbi", float((got - ref).abs().max()), 0.0, ref,
-            cuda_ms(lambda: vt.viterbi_path(walk, n)), plain_ms, None, 0.0, 0.0,
-            torch.float32, 0, [t_len, bins, n, "random walk"],
+            cuda_ms(lambda: vt.viterbi_path(walk, n)), plain_ms, None,
+            0, [t_len, bins, n, "random walk"],
             {"path_mismatches": int((got != ref).sum()),
              "distinct_bins": int(ref.unique().numel())})
 
@@ -906,14 +759,9 @@ def check_kernels(calls: dict) -> dict:
         lib_ms, lib_err = gru_library(x, params, got)
         gx = rnn._project(x, params)
         scan_ms = cuda_ms(lambda: rnn._scan(gx, params))
-        # the projection (6H x I a frame) and the recurrence (2 x 3H x H a
-        # step) in fp32; x, the weights and the output moved once
-        flops = 2.0 * b * t_len * 6 * 256 * (n_in + 256)
-        byts = nbytes(x, params["w_ih_cat"], params["b_gx"], params["w_hh_units"],
-                      params["b_hn"], got)
         add("gru_scan", float((got - ref).abs().max()), 1e-5, ref,
-            cuda_ms(lambda: rnn.bigru(x, params)), plain_ms, lib_ms, flops, byts,
-            torch.float32, e["count"], [b, t_len, n_in],
+            cuda_ms(lambda: rnn.bigru(x, params)), plain_ms, lib_ms,
+            e["count"], [b, t_len, n_in],
             {"scan_ms": scan_ms, "projection_ms": cuda_ms(lambda: rnn._project(x, params)),
              "us_per_step": 1e3 * scan_ms / t_len, "cudnn_gru_max_abs_err": lib_err})
         if not lib_err <= 1e-5:
@@ -995,7 +843,6 @@ def drive(vc, song, opts, baseline: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     weights = model_bytes(vc)
     return {"warmup_s": warm_s, "wall_s": wall,
-            "realtime_factor": SONG_SECONDS / wall,
             "max_memory_allocated": peak, "resident_before_bytes": resident,
             "model_bytes": weights, "peak_own_bytes": peak - resident + weights,
             "launches": read_launches(baseline),
@@ -1113,8 +960,8 @@ def batch_phase(vc, song, opts, baseline, smi, seconds=BATCH_SONGS_S) -> list:
     One warm-up of each route; then the packed call with the launch counts
     set to 0 before it and read after it (resblock group 36 and
     conv-transpose 4 per packed batch, band attention 6 per batch, the
-    U-Net chain 112 and the high-pass 1 per song), and the four serial converts, each timed on
-    the host clock and profiled for device time. A song all of whose chunks
+    U-Net chain 112 and the high-pass 1 per song), and the four serial
+    converts, each timed on the host clock. A song all of whose chunks
     ride the same bucket in both routes must come out byte for byte; any
     other song's difference is printed, per chunk too, and must stay below
     0.5 dB of mel distortion (the whole-song RMS gain spreads a chunk's
@@ -1170,8 +1017,6 @@ def batch_phase(vc, song, opts, baseline, smi, seconds=BATCH_SONGS_S) -> list:
         serial.append(vc.convert(x, opts))
         torch.cuda.synchronize()
         serial_s += time.perf_counter() - t0
-    packed_prof = profile_call(lambda: vc.convert_batch(songs, opts))
-    serial_prof = profile_call(lambda: [vc.convert(x, opts) for x in songs])
 
     conv_pre_ms = conv_pre_times(vc, sorted(set(batches)))
     b, n_songs = len(batches), len(songs)
@@ -1197,19 +1042,13 @@ def batch_phase(vc, song, opts, baseline, smi, seconds=BATCH_SONGS_S) -> list:
                  "mel_distortion_db": mel_distortion_db(out, ref, sr),
                  "peak_int16": int(np.abs(out.astype(np.int32)).max())}
         per_song.append(entry)
-    total_s = float(sum(seconds))
-    result = {"phase": "batch", "songs_s": list(seconds), "seconds_audio": total_s,
+    result = {"phase": "batch", "songs_s": list(seconds), "seconds_audio": float(sum(seconds)),
               "chunks": sum(len(p.chunks) for p in plans),
               "packed_batches": b, "packed_buckets_s": [x / eng.sample_rate for x in batches],
               "planned": [[bk / eng.sample_rate, g] for bk, g in work],
               "serial_batches": sum(len(vc._batch_geometry(p)[0]) for p in plans),
               "launches": launches, "launches_expected": want,
-              "packed_wall_s": packed_s, "packed_realtime_factor": total_s / packed_s,
-              "serial_wall_s": serial_s, "serial_realtime_factor": total_s / serial_s,
-              "packed_kernel_ms": packed_prof["device_busy_ms"],
-              "serial_kernel_ms": serial_prof["device_busy_ms"],
-              "packed_profiled_wall_ms": packed_prof["wall_ms"],
-              "serial_profiled_wall_ms": serial_prof["wall_ms"],
+              "packed_wall_s": packed_s, "serial_wall_s": serial_s,
               "max_memory_allocated": peak, "songs": per_song,
               "conv_pre_ms": conv_pre_ms, "card": smi}
     emit(result)
@@ -1246,21 +1085,20 @@ def compare(out, ref, sr: int) -> dict:
     return entry
 
 
-def mesh_run(label, mvc, song, opts, refs, baseline, smi, n_batches, bounds,
+def mesh_run(label, mvc, song, opts, refs, baseline, smi, n_batches,
              songs=None, nof0=None) -> dict:
     """One mesh converter against the unsharded outputs in refs: convert of
-    the song (warm-up, counts to 0, timed convert, counts read, profile),
-    then, where given, convert_batch of songs and the no-f0 converter nof0's
-    convert the same way. Launches must be n_data times the unsharded
-    path's per batch (the resblock group 36, conv-transpose 4, band
-    attention 6) and the U-Net chain's 112 a song (the F0 pass runs once, on
-    the primary device). Every rendition must have its reference's length
-    and stay below 0.5 dB; bounds["convert"], ["batch"] (each song) and
-    ["nof0"] hold its int16 differences ("identical": byte for byte, else
-    at most the largest count and distortion it gives)."""
+    the song (warm-up, counts to 0, convert, counts read), then, where
+    given, convert_batch of songs and the no-f0 converter nof0's convert
+    the same way. Launches must be n_data times the unsharded path's per
+    batch (the resblock group 36, conv-transpose 4, band attention 6) and
+    the U-Net chain's 112 a song (the F0 pass runs once, on the primary
+    device). Every rendition must equal its reference byte for byte: each
+    data shard's calls whose algorithm the card picks by row count run at
+    the engine's chunk_batch rows (ops/conv.py:at_rows)."""
     from polgen_rvc_tpu_torch.ops import cuda_build
 
-    n_data = mvc.mesh.shape["data"]
+    n_data = len(mvc.mesh.devices)
 
     def want(batches, songs_n, use_f0=True):
         return {"resblock_group": 36 * n_data * batches,
@@ -1271,92 +1109,53 @@ def mesh_run(label, mvc, song, opts, refs, baseline, smi, n_batches, bounds,
 
     parts = {}
     run = drive(mvc, song, opts, baseline)
-    prof = profile_convert(mvc, song, opts)
-    parts["convert"] = {"wall_s": run["wall_s"], "realtime_factor": run["realtime_factor"],
-                        "kernel_ms": prof["device_busy_ms"],
-                        "device_idle_share": prof["device_idle_share"],
-                        "launches": run["launches"],
+    parts["convert"] = {"wall_s": run["wall_s"], "launches": run["launches"],
                         "launches_expected": want(n_batches["convert"], 1),
                         "repeatable": run["repeatable"],
                         **compare(run["out"], refs["convert"], run["sr"])}
     if songs is not None:
         mvc.convert_batch(songs, opts)
         zero_launches(baseline)
-        t0 = time.perf_counter()
         packed = mvc.convert_batch(songs, opts)
-        wall = time.perf_counter() - t0
-        launches = read_launches(baseline)
-        bprof = profile_call(lambda: mvc.convert_batch(songs, opts))
-        parts["batch"] = {"wall_s": wall, "kernel_ms": bprof["device_busy_ms"],
-                          "launches": launches,
+        parts["batch"] = {"launches": read_launches(baseline),
                           "launches_expected": want(n_batches["batch"], len(songs)),
                           "songs": [compare(out, ref, sr) for (out, sr), (ref, _)
                                     in zip(packed, refs["batch"])]}
     if nof0 is not None:
         nrun = drive(nof0, song, opts, baseline)
-        nprof = profile_convert(nof0, song, opts)
-        parts["nof0"] = {"wall_s": nrun["wall_s"], "kernel_ms": nprof["device_busy_ms"],
-                         "launches": nrun["launches"],
+        parts["nof0"] = {"launches": nrun["launches"],
                          "launches_expected": want(n_batches["convert"], 1, use_f0=False),
                          **compare(nrun["out"], refs["nof0"], nrun["sr"])}
-    result = {"phase": "mesh", "run": label, "shape": mvc.mesh.shape,
-              "devices": [str(d) for d in mvc.mesh.devices.flat], **parts,
-              "bounds": {k: bounds[k] for k in parts},
+    result = {"phase": "mesh", "run": label,
+              "devices": [str(d) for d in mvc.mesh.devices], **parts,
               "cuda_build": cuda_build.counts(), "card": smi}
     emit(result)
     for name, part in parts.items():
         if part["launches"] != part["launches_expected"]:
             raise AssertionError(f"mesh {label} {name}: launches {part['launches']}, "
                                  f"expected {part['launches_expected']}")
-        bound = bounds[name]
         for entry in part.get("songs", [part]):
-            if entry["samples"][0] != entry["samples"][1]:
-                raise AssertionError(f"mesh {label} {name}: lengths {entry['samples']}")
-            if not entry["mel_distortion_db"] < 0.5:
-                raise AssertionError(f"mesh {label} {name}: {entry['mel_distortion_db']} dB")
-            if bound == "identical" and not entry["identical"]:
+            if not entry["identical"]:
                 raise AssertionError(f"mesh {label} {name}: not byte-equal to the "
-                                     "unsharded output")
-            if isinstance(bound, dict) and any(entry[k] > v for k, v in bound.items()):
-                raise AssertionError(
-                    f"mesh {label} {name}: {entry['max_abs_diff']} counts, "
-                    f"{entry['mel_distortion_db']} dB, beyond {bound}")
+                                     f"unsharded output: {entry}")
     if not run["repeatable"]:
         raise AssertionError(f"mesh {label}: two converts of the song differ")
     return result
-
-
-# How far a mesh with a split HuBERT (2x2) may lie from the unsharded
-# converter's output on one card (largest int16 count, mel distortion in
-# dB), each bound between what sound meshes and wrong ones read on an
-# NVIDIA H100 80GB HBM3 at 700 W (mesh_stages.py; PERF.md section 6):
-# sound 2x2 at most 226 counts, 0.085 dB; biases added in each model shard
-# 850 counts, 0.23 dB; noise from another seed 9,395 counts, 2.0 dB. A
-# split HuBERT rounds each shard's partial product to bf16 before the sum.
-# The no-f0 model's output moves more with its content features: sound 638
-# counts, 0.111 dB; biases per shard 2,879 counts, 0.51 dB. A data shard
-# of fewer rows (2x1) gives the unsharded bytes: the calls whose algorithm
-# the card picks by row count run at the engine's chunk_batch rows
-# (ops/conv.py:at_rows), so 2x1 is held byte for byte.
-SPLIT_BOUND = {"max_abs_diff": 400, "mel_distortion_db": 0.15}
-NOF0_SPLIT_BOUND = {"max_abs_diff": 1200, "mel_distortion_db": 0.25}
 
 
 def mesh_phase(eng, song, opts, main_out, baseline, smi,
                seconds=BATCH_SONGS_S) -> dict:
     """The counterpart of the JAX package's dryrun_multichip at full width,
     on the main path's song, engine and options, over one making of the
-    main path's weights (seed 0) and the no-f0 model's. (a) Meshes over
-    cuda:0 named several times (the stand-in for JAX's virtual devices):
-    2x2 (data 2 x model 2, one row a data shard, HuBERT tensor-parallel)
-    with convert, convert_batch of the batch phase's songs and the no-f0
-    model's convert; 2x1 (HuBERT whole, one row a shard) with convert and
-    convert_batch, byte for byte the unsharded output; 1x1, byte for byte
-    the main path's output. (b) Where
-    the machine shows two cards or more, the same runs on make_mesh() over
-    the distinct cards (data = count, or count / 2 x model 2 for an even
-    count >= 4); else "distinct_cards": false and no run. Every reference
-    is the unsharded converter's output for the same input and engine."""
+    main path's weights (seed 0) and the no-f0 model's. (a) Data meshes
+    over cuda:0 named several times (the stand-in for JAX's virtual
+    devices): 2x1 (one row a data shard) with convert, convert_batch of
+    the batch phase's songs and the no-f0 model's convert; 1x1 with
+    convert. (b) Where the machine shows two cards or more, the same runs
+    as 2x1 on make_mesh() over the distinct cards (one data shard a card);
+    else "distinct_cards": false and no run. Every reference is the
+    unsharded converter's output for the same input and engine, and every
+    rendition must equal it byte for byte."""
     import torch
 
     from polgen_rvc_tpu_torch.parallel import make_mesh
@@ -1388,30 +1187,23 @@ def mesh_phase(eng, song, opts, main_out, baseline, smi,
     if not np.array_equal(refs["convert"], main_out):
         raise AssertionError("mesh: the unsharded reference is not the main path's output")
 
-    split = {"convert": SPLIT_BOUND, "batch": SPLIT_BOUND, "nof0": NOF0_SPLIT_BOUND}
     runs = []
-    one = ["cuda:0"]
-    for label, shape, bounds, kw in (
-            ("2x2_one_card", (2, 2), split, {"songs": songs, "nof0": True}),
-            ("2x1_one_card", (2, 1), {"convert": "identical", "batch": "identical"},
-             {"songs": songs}),
-            ("1x1", (1, 1), {"convert": "identical"}, {})):
-        mesh = make_mesh(*shape, devices=one * (shape[0] * shape[1]))
+    for label, n_data, kw in (("2x1_one_card", 2, {"songs": songs, "nof0": True}),
+                              ("1x1", 1, {})):
+        mesh = make_mesh(n_data, devices=["cuda:0"] * n_data)
         nof0 = build(eng, mesh, use_f0=False) if kw.pop("nof0", False) else None
         runs.append(mesh_run(label, build(eng, mesh), song, opts, refs, baseline, smi,
-                             n_batches, bounds, nof0=nof0, **kw))
+                             n_batches, nof0=nof0, **kw))
         del nof0
     count = torch.cuda.device_count()
     emit({"phase": "mesh", "distinct_cards": count >= 2, "device_count": count})
     if count >= 2:
-        n_model = 2 if count % 2 == 0 and count >= 4 else 1
-        mesh = make_mesh(n_model=n_model)
-        n_data = mesh.shape["data"]
-        beng = eng if eng.chunk_batch % n_data == 0 else dataclasses.replace(
-            eng, chunk_batch=n_data)
+        mesh = make_mesh()
+        beng = eng if eng.chunk_batch % count == 0 else dataclasses.replace(
+            eng, chunk_batch=count)
         brefs, bn = (refs, n_batches) if beng is eng else references(beng)
         runs.append(mesh_run("distinct_cards", build(beng, mesh), song, opts, brefs,
-                             baseline, smi, bn, split, songs=songs,
+                             baseline, smi, bn, songs=songs,
                              nof0=build(beng, mesh, use_f0=False)))
     return {"runs": runs}
 
@@ -1440,8 +1232,8 @@ def f0_file_phase(vc, song, opts, main_out, baseline, smi,
     np.interp onto the frames, computed here on the host; one warm-up, the
     counts set to 0, a timed convert (drive), which must launch as the
     main path does and repeat its bytes, and differ from the main path's
-    output; its profile; then convert_batch over the batch phase's songs
-    with the file, each song byte-equal to its serial convert."""
+    output; then convert_batch over the batch phase's songs with the file,
+    each song byte-equal to its serial convert."""
     import torch
 
     from polgen_rvc_tpu_torch.ops.filters import highpass_pad_quant
@@ -1463,7 +1255,6 @@ def f0_file_phase(vc, song, opts, main_out, baseline, smi,
         got = prep.pitch[start:stop].cpu().numpy()
         got_hz = prep.pitchf[start:stop].cpu().numpy()
         run = drive(vc, song, fopts, baseline)
-        profile = profile_convert(vc, song, fopts)
         songs = [song[:s * eng.sample_rate] for s in seconds]
         t0 = time.perf_counter()
         packed = vc.convert_batch(songs, fopts)
@@ -1481,7 +1272,6 @@ def f0_file_phase(vc, song, opts, main_out, baseline, smi,
               **{k: v for k, v in run.items() if k != "out"},
               "out_samples": int(run["out"].shape[0]),
               "differs_from_main": not np.array_equal(run["out"], main_out),
-              "kernel_ms": profile["device_busy_ms"], "profiled_wall_ms": profile["wall_ms"],
               "batch_songs_s": list(seconds), "batch_packed_wall_s": packed_s,
               "batch": per_song, "card": smi}
     emit(result)
@@ -1623,7 +1413,7 @@ def cli_phase(root, baseline, smi) -> dict:
     result = {"phase": "cli", "input": {"seconds": seconds, "sr": in_sr, "channels": 2},
               "path": path, "sr": sr, "samples": int(y.shape[0]),
               "expected_samples": expected, "peak": float(np.abs(y).max()),
-              "wall_s": wall, "realtime_factor": seconds / wall,
+              "wall_s": wall,
               "compute_dtype": vc.engine.compute_dtype, "launches": launches,
               "mp3": mp3, "card": smi}
     emit(result)
@@ -1876,7 +1666,7 @@ def hosts_child(rank: str, port: str, root: str) -> int:
 
     rank, port = int(rank), int(port)
     baseline = launch_baseline()
-    mesh = make_mesh(2, 1, devices=["cuda:0"] * 2)
+    mesh = make_mesh(2, devices=["cuda:0"] * 2)
     eng = EngineConfig(**BENCH_TIERS, compute_dtype="bfloat16")
     vc = build_converter(*checkpoint_files(root), engine=eng, mesh=mesh)
     song = bench_song(SONG_SECONDS)
@@ -1899,7 +1689,7 @@ def hosts_child(rank: str, port: str, root: str) -> int:
           "backend": "gloo", "songs": host_share(len(songs), rank, HOSTS),
           "songs_s": [BATCH_SONGS_S[i] for i in host_share(len(songs), rank, HOSTS)],
           "wall_s": wall, "launches": launches, "host_sum": summed.tolist(),
-          "mesh": [str(d) for d in mesh.devices.flat],
+          "mesh": [str(d) for d in mesh.devices],
           "card_uuid": str(torch.cuda.get_device_properties(0).uuid)})
     return 0
 
@@ -2163,26 +1953,15 @@ def highpass_phase(smi) -> dict:
         x = torch.from_numpy(song).cuda()
         got = [t.cpu() for t in hp.highpass_pad_quant(x, t_pad)]
         ms = cuda_ms(lambda: hp.highpass_pad_quant(x, t_pad), reps=20)
-        per_kernel = profile_call(lambda: hp.highpass_pad_quant(x, t_pad))["kernels"]
         t0 = time.perf_counter()
         twin = hp.highpass_pad_quant_plain(torch.from_numpy(song), t_pad)
         twin_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         h_audio, h_q, h_inv, _ = highpass_pad_quant(song, t_pad)
         host_s = time.perf_counter() - t0
-        n, ext = song.shape[0], song.shape[0] + 2 * hp.PADLEN
-        bucket = got[1].shape[0]
-        # the input read, the float64 extension written, read twice, rewritten
-        # and read twice more, the float32 signal written and read, the buffers
-        designed = 4 * n + 6 * 8 * ext + 2 * 4 * n + (2 + 4) * bucket
-        once = 4 * n + 4 * n + (2 + 4) * bucket
         dq = np.abs(got[1].numpy().astype(np.int32) - h_q)
-        entry = {"seconds": seconds, "samples": n, "bucket": bucket, "ms": ms,
-                 "kernels": per_kernel,
-                 "bound_ms_designed": designed / PEAK_BYTES_PER_S * 1e3,
-                 "bound_ms_once": once / PEAK_BYTES_PER_S * 1e3,
-                 "roofline_share_once": once / PEAK_BYTES_PER_S * 1e3 / ms,
-                 "twin_ms": twin_s * 1e3, "host_scipy_ms": host_s * 1e3,
+        entry = {"seconds": seconds, "samples": song.shape[0], "bucket": got[1].shape[0],
+                 "ms": ms, "twin_ms": twin_s * 1e3, "host_scipy_ms": host_s * 1e3,
                  "twin_bitwise": all(torch.equal(g, w) for g, w in zip(got, twin)),
                  "float32_max_diff_over_peak":
                      float(np.abs(got[0].numpy() - h_audio).max() / np.abs(h_audio).max()),
@@ -2248,7 +2027,6 @@ def main() -> int:
     song = bench_song(SONG_SECONDS)
     opts = ConversionOptions(**BENCH_OPTS)
     run = drive(vc, song, opts, baseline)
-    profile = profile_convert(vc, song, opts)
     # one more, untimed convert records each kernel's main-path inputs
     rec = Recorder()
     try:
@@ -2265,8 +2043,6 @@ def main() -> int:
             "peak_int16": int(np.abs(run["out"].astype(np.int32)).max()),
             "out_sha256": hashlib.sha256(run["out"].tobytes()).hexdigest(), "card": smi}
     emit(main)
-    emit({"phase": "profile", **{k: v for k, v in profile.items() if k != "kernels"},
-          "top": profile["kernels"][:8]})
     check_output(run, expected, "main path",
                  launched=(*synth_kernels, "unet_chain", "gru_scan"), idle=("viterbi",))
     launches = dict(run["launches"])
@@ -2296,7 +2072,6 @@ def main() -> int:
     setup_s = time.perf_counter() - t0
     copts = ConversionOptions(f0_method="mangio-crepe", **BENCH_OPTS)
     crun = drive(cvc, song, copts, baseline)
-    cprofile = profile_convert(cvc, song, copts)
     crec = Recorder(names=("viterbi",))
     try:
         cvc.convert(song, copts)
@@ -2307,11 +2082,9 @@ def main() -> int:
           "crepe_frames": padded_len // copts.hop_length + 1, "setup_s": setup_s,
           **{k: v for k, v in crun.items() if k != "out"},
           "out_samples": int(crun["out"].shape[0]), "expected_samples": expected,
-          "peak_int16": int(np.abs(crun["out"].astype(np.int32)).max()), "card": smi})
-    emit({"phase": "crepe_profile",
-          **{k: v for k, v in cprofile.items() if k != "kernels"},
-          "top": cprofile["kernels"][:12],
-          "slab_layers": crepe_layer_times(cvc.crepe_params, cvc.compute_dtype)})
+          "peak_int16": int(np.abs(crun["out"].astype(np.int32)).max()),
+          "slab_layers": crepe_layer_times(cvc.crepe_params, cvc.compute_dtype),
+          "card": smi})
     check_output(crun, expected, "mangio-crepe path",
                  launched=(*synth_kernels, "viterbi"), idle=("unet_chain", "gru_scan"))
     if crun["launches"]["viterbi"] != 1:
@@ -2333,10 +2106,7 @@ def main() -> int:
     setup_s = time.perf_counter() - t0
     fopts = ConversionOptions(f0_method="fcpe", **BENCH_OPTS)
     frun = drive(fvc, song, fopts, baseline)
-    fprofile = profile_convert(fvc, song, fopts)
-    _, qbuf, inv_scale, padded_len = highpass_pad_quant(song, eng.t_pad, eng.window)
-    fbuf = torch.from_numpy(qbuf).cuda().float() * float(inv_scale)
-    f0_profile = profile_call(lambda: fvc.compute_f0(fbuf, fopts, padded_len))
+    qbuf = highpass_pad_quant(song, eng.t_pad, eng.window)[1]
     emit({"phase": "fcpe", "seconds_audio": SONG_SECONDS, "setup_s": setup_s,
           "fcpe": {"layers": fvc.fcpe_cfg.n_layers, "channels": fvc.fcpe_cfg.n_chans,
                    "heads": fvc.fcpe_cfg.n_heads,
@@ -2345,19 +2115,11 @@ def main() -> int:
           **{k: v for k, v in frun.items() if k != "out"},
           "out_samples": int(frun["out"].shape[0]), "expected_samples": expected,
           "peak_int16": int(np.abs(frun["out"].astype(np.int32)).max()), "card": smi})
-    emit({"phase": "fcpe_profile",
-          **{k: v for k, v in fprofile.items() if k != "kernels"},
-          "top": fprofile["kernels"][:10],
-          "fcpe_pass": {"wall_ms": f0_profile["wall_ms"],
-                        "device_busy_ms": f0_profile["device_busy_ms"],
-                        "share_of_convert_kernel_time":
-                            f0_profile["device_busy_ms"] / fprofile["device_busy_ms"],
-                        "top": f0_profile["kernels"][:8]}})
     check_output(frun, expected, "fcpe path", launched=synth_kernels,
                  idle=("unet_chain", "gru_scan", "viterbi"))
     check_resblock_launches(frun, "fcpe path")
     check_convt_launches(frun, "fcpe path")
-    del fvc, frun, fbuf
+    del fvc, frun
 
     # ---- no-f0 model -------------------------------------------------------
     t0 = time.perf_counter()
@@ -2368,13 +2130,10 @@ def main() -> int:
     real_f0 = nvc.compute_f0
     nvc.compute_f0 = lambda *a, **k: (f0_passes.append(1), real_f0(*a, **k))[1]
     nrun = drive(nvc, song, opts, baseline)
-    nprofile = profile_convert(nvc, song, opts)
     emit({"phase": "nof0", "seconds_audio": SONG_SECONDS, "setup_s": setup_s,
           "f0_passes": len(f0_passes), **{k: v for k, v in nrun.items() if k != "out"},
           "out_samples": int(nrun["out"].shape[0]), "expected_samples": expected,
-          "peak_int16": int(np.abs(nrun["out"].astype(np.int32)).max()),
-          "profile": {k: v for k, v in nprofile.items() if k != "kernels"},
-          "top": nprofile["kernels"][:8], "card": smi})
+          "peak_int16": int(np.abs(nrun["out"].astype(np.int32)).max()), "card": smi})
     check_output(nrun, expected, "no-f0 path", launched=synth_kernels,
                  idle=("unet_chain", "gru_scan", "viterbi"))
     check_resblock_launches(nrun, "no-f0 path")
@@ -2389,7 +2148,6 @@ def main() -> int:
                                     index_vectors=65536, engine=eng, device="cuda")
     setup_s = time.perf_counter() - t0
     vrun = drive(vvc, song, opts, baseline)
-    vprofile = profile_convert(vvc, song, opts)
     vrec = Recorder(names=("resblock_group", "conv_transpose"))
     try:
         vvc.convert(song, opts)
@@ -2402,9 +2160,7 @@ def main() -> int:
           "input_dim": vvc.synth_cfg.input_dim, "version": vvc.version,
           **{k: v for k, v in vrun.items() if k != "out"},
           "out_samples": int(vrun["out"].shape[0]), "expected_samples": v_expected,
-          "peak_int16": int(np.abs(vrun["out"].astype(np.int32)).max()),
-          "profile": {k: v for k, v in vprofile.items() if k != "kernels"},
-          "top": vprofile["kernels"][:8], "card": smi})
+          "peak_int16": int(np.abs(vrun["out"].astype(np.int32)).max()), "card": smi})
     check_output(vrun, v_expected, "v1 32 kHz path",
                  launched=(*synth_kernels, "unet_chain", "gru_scan"), idle=("viterbi",),
                  sample_rate=32000)
@@ -2558,9 +2314,7 @@ def main() -> int:
          "source": f"polgen_rvc_tpu_torch/csrc/{name}.cu",
          "replaces": sources[name], "launches": launches[name],
          "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
-         "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
-         "bound_by": kernels[name]["bound_by"],
-         "library_ms": kernels[name]["library_ms"],
+         "plain_ms": kernels[name]["plain_ms"], "library_ms": kernels[name]["library_ms"],
          **({"cudnn_convs_ms": kernels[name]["cudnn_convs_ms"],
              "cudnn_convs_note": "yardstick, not library_ms: the group's 18 convs "
                                  "as bf16 F.conv1d calls at the same shapes, summed "

@@ -27,8 +27,8 @@ The songs, engine, model and options are the JAX dryrun's: 7, 5 and 6 s
 sines at 220, 330 and 262 Hz with light noise (seeds 10 + i); x_pad 1,
 x_query 2, x_center 4, x_max 5, chunk_batch 4, 2 s buckets; the tiny 48 kHz
 model with 64 index vectors; index_rate 0.4, protect 0.2, seed 5. The local
-mesh is 4 x 1 over the device named four times (four distinct cards where
-the machine shows four). The device is the card unless --device cpu is
+mesh is 4 data shards over the device named four times (four distinct cards
+where the machine shows four). The device is the card unless --device cpu is
 given (no card raises); CPU processes run one torch thread. Each worker
 has a time limit; a failed worker or comparison exits non-zero. Prints one
 summary line.
@@ -89,15 +89,15 @@ def local_device(device: str):
 
 
 def local_mesh(dev):
-    """4 x 1 over four distinct cards where the machine shows four, else
-    over dev named four times."""
+    """Four data shards over four distinct cards where the machine shows
+    four, else over dev named four times."""
     import torch
 
     from polgen_rvc_tpu_torch.parallel import make_mesh
 
     if dev.type == "cuda" and torch.cuda.device_count() >= LOCAL_PLACES:
-        return make_mesh(LOCAL_PLACES, 1)
-    return make_mesh(LOCAL_PLACES, 1, devices=[dev] * LOCAL_PLACES)
+        return make_mesh(LOCAL_PLACES)
+    return make_mesh(LOCAL_PLACES, devices=[dev] * LOCAL_PLACES)
 
 
 def file_noise(path: str):
@@ -162,7 +162,7 @@ def worker(rank: int, port: int, out_dir: str, device: str = "cuda",
     mine = host_share(len(songs()), rank, N_PROC)
     with open(os.path.join(out_dir, f"proc{rank}.json"), "w") as f:
         json.dump({"rank": rank, "songs": mine, "host_sum": got.tolist(),
-                   "convert_s": wall, "mesh": [str(d) for d in mesh.devices.flat]}, f)
+                   "convert_s": wall, "mesh": [str(d) for d in mesh.devices]}, f)
     print(f"worker {rank}: ok (songs {mine}, host_sum {got[0].item()})", flush=True)
     return 0
 

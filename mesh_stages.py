@@ -8,9 +8,9 @@ and what a wrong mesh reads.
 The full-width 48 kHz v2 model, bf16 engine, options and 60 s song of
 chip_smoke.py's main path, and its batch phase's four songs cut from it
 (convert_batch packs them into three chunk batches of two rows; the
-first is also the 60 s song's convert batch). On a mesh whose places all
-name cuda:0, a data shard runs a batch's rows apart; this script takes
-each packed batch apart the same way:
+first is also the 60 s song's convert batch). On a data mesh whose shards
+all name cuda:0, a data shard runs a batch's rows apart; this script
+takes each packed batch apart the same way:
 
   ops:    the batch's row work (``_shard_rows``: HuBERT, retrieval, protect,
           synthesizer, trim) once on both rows and once on each row alone
@@ -19,17 +19,14 @@ each packed batch apart the same way:
           ones. For each row, the first calls whose row differs between the
           two runs, with the port's calling line and the largest
           difference, and the number of differing calls in each module.
-  hubert: each HuBERT layer's output for each row alone, whole and split
-          over two model shards on cuda:0 (a 2x2 mesh's rows), against the
-          two-row unsharded batch and against the row alone: the row
-          split's and the tensor split's parts of the difference apart.
+  hubert: each HuBERT layer's output for each row alone against the
+          two-row unsharded batch.
   reads:  int16 differences (largest, share of samples) and mel distortion
-          against the unsharded converter's output, for the 2x2 and 2x1
-          meshes (convert of the song and convert_batch of the batch
-          phase's songs) and the no-f0 model on 2x2, each beside two wrong
-          meshes: o's and fc2's biases added in each of the two model
-          shards (2x2), and every row's noise drawn from another seed. The
-          bounds in chip_smoke.py's mesh phase lie between the two.
+          against the unsharded converter's output, for the 2x1 mesh
+          (convert of the song and, for the f0 model, convert_batch of the
+          batch phase's songs), for the main and the no-f0 model, each
+          beside a wrong mesh whose rows' noise is drawn from another seed.
+          chip_smoke.py's mesh phase holds the 2x1 mesh byte for byte.
   sweep:  (--sweep, alone) the ops comparison at every bucket class of the
           engine's grid (4 s steps up to max_bucket_len), for the main
           model and the no-f0 model: one packed two-row batch a bucket,
@@ -280,36 +277,27 @@ def sweep(eng, song, opts, buckets_s=None) -> dict:
 
 
 def hubert_layers(vc, inp, bucket) -> dict:
-    """Per layer, max |difference| of each row's features: alone (whole),
-    alone split over two model shards, against the two-row batch, and the
-    split against the whole alone."""
-    from polgen_rvc_tpu_torch.models.hubert import hubert_extract_tp
-    from polgen_rvc_tpu_torch.parallel import make_mesh, shard_hubert_params
+    """Per layer, max |difference| of each row's features alone against the
+    two-row batch."""
+    from polgen_rvc_tpu_torch.models.hubert import hubert_extract
 
     cfg, dev = vc.hubert_cfg, vc.device
-    tp = shard_hubert_params(vc.hubert_params, make_mesh(1, 2, devices=[dev, dev]),
-                             cfg.n_heads)[0]
 
-    def feats(shards, sl, layer):
+    def feats(sl, layer):
         hub_pad = (torch.arange(cfg.num_frames(bucket), device=dev)[None, :]
                    >= inp["hub_valid"][sl][:, None])
-        return hubert_extract_tp(shards, [dev] * len(shards), cfg, inp["wav"][sl],
-                                 output_layer=layer, compute_dtype=vc.compute_dtype,
-                                 padding_mask=hub_pad, valid_samples=inp["samp_lens"][sl],
-                                 rows=vc.engine.chunk_batch).float()
+        return hubert_extract(vc.hubert_params, cfg, inp["wav"][sl], output_layer=layer,
+                              compute_dtype=vc.compute_dtype, padding_mask=hub_pad,
+                              valid_samples=inp["samp_lens"][sl],
+                              rows=vc.engine.chunk_batch).float()
 
     out = []
     for layer in range(1, cfg.n_layers + 1):
-        two = feats([vc.hubert_params], slice(0, 2), layer)
+        two = feats(slice(0, 2), layer)
         entry = {"layer": layer, "max_abs": float(two.abs().max())}
         for r in range(2):
             sl = slice(r, r + 1)
-            whole = feats([vc.hubert_params], sl, layer)
-            split = feats(tp, sl, layer)
-            entry[f"row{r}"] = {
-                "whole_vs_batch": float((whole - two[sl]).abs().max()),
-                "split_vs_batch": float((split - two[sl]).abs().max()),
-                "split_vs_whole": float((split - whole).abs().max())}
+            entry[f"row{r}_vs_batch"] = float((feats(sl, layer) - two[sl]).abs().max())
         out.append(entry)
     return {"layers": out}
 
@@ -329,23 +317,11 @@ def reads(song, opts) -> dict:
     def other_seed(seed, chunk_id, *rest):
         return torch_noise(seed + 1, chunk_id, *rest)
 
-    def build(model, shape=None, noise=torch_noise):
-        mesh = None if shape is None else make_mesh(*shape, devices=["cuda:0"] * (
-            shape[0] * shape[1]))
+    def build(model, n_data=None, noise=torch_noise):
+        mesh = None if n_data is None else make_mesh(n_data, devices=["cuda:0"] * n_data)
         return VoiceConverter(**dict(zip(names, model)), engine=eng,
                               device=None if mesh else "cuda:0", mesh=mesh,
                               noise_provider=noise)
-
-    def bias_per_shard(vc):
-        """o's and fc2's biases twice, as a split that adds them in each of
-        two model shards: the reduction takes each device's first shard's
-        (one tree, which the data shards on one device share)."""
-        trees = {id(s.hubert_params[0]): s.hubert_params[0] for s in vc._data_shards()}
-        for tree in trees.values():
-            for lp in tree["encoder"]["layers"]:
-                lp["attn"]["o"]["b"] = lp["attn"]["o"]["b"] * 2
-                lp["fc2"]["b"] = lp["fc2"]["b"] * 2
-        return vc
 
     out = {}
     for model_name, use_f0 in (("f0", True), ("nof0", False)):
@@ -355,12 +331,8 @@ def reads(song, opts) -> dict:
         ref = ref_vc.convert(song, opts)[0]
         ref_batch = ref_vc.convert_batch(songs, opts) if use_f0 else None
         del ref_vc
-        runs = {"2x2": lambda: build(model, (2, 2)),
-                "2x2_wrong_bias_per_shard": lambda: bias_per_shard(build(model, (2, 2))),
-                "2x2_wrong_noise": lambda: build(model, (2, 2), other_seed)}
-        if use_f0:
-            runs.update({"2x1": lambda: build(model, (2, 1)),
-                         "2x1_wrong_noise": lambda: build(model, (2, 1), other_seed)})
+        runs = {"2x1": lambda: build(model, 2),
+                "2x1_wrong_noise": lambda: build(model, 2, other_seed)}
         for label, make in runs.items():
             vc = make()
             entry = {"convert": compare(vc.convert(song, opts)[0], ref, 48000)}

@@ -17,8 +17,8 @@ Layer map (mirrors the JAX package so each counterpart is easy to find):
     retrieval/  exact top-k feature retrieval
     pipeline/   chunk planner, converter engine, batch covers, prewarm,
                 output path, builders
-    parallel/   the ("data", "model") device mesh: chunk rows split over
-                data shards, HuBERT's heads and FFN over model shards
+    parallel/   the data mesh: chunk rows split over data shards; batch
+                covers split over processes
     native/     host C++ (the FLAC codec, the effects chain), g++ at first use
     utils/      audio file I/O (WAV, mp3, FLAC), progress, metrics
     app/        file-to-file conversion, the CLIs, the mixdown, Edge-TTS

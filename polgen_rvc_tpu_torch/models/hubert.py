@@ -3,9 +3,6 @@
 7-layer strided conv feature extractor (first layer group-normed, GELU),
 LayerNorm + Linear(512 -> 768), grouped positional conv, post-LN
 transformer layers; ``hubert_extract`` returns layer ``output_layer``.
-Its one layer loop is ``hubert_extract_tp``'s, which splits each layer's
-attention heads and FFN columns over tensor-parallel shards
-(parallel/mesh.py); unsharded, that is one shard.
 Padded frames are zeroed at input and masked out of attention, and the
 first GroupNorm's statistics cover only the valid samples, so a chunk's
 features do not depend on the bucket it is padded to.
@@ -72,7 +69,7 @@ def _group_norm(x, gamma, beta, groups: int, eps=1e-5, time_valid=None, rows=Non
 
 
 def feature_extractor(params, cfg: HubertConfig, wav, valid_samples=None, rows=None):
-    """(B, T_samples) -> (B, T_frames, 512); rows: as hubert_extract_tp."""
+    """(B, T_samples) -> (B, T_frames, 512); rows: as hubert_extract."""
     x = wav[:, None, :]
     for i, (dim, k, s) in enumerate(cfg.conv_layers):
         x = conv1d(x, params["convs"][i]["w"], None, stride=s)
@@ -94,12 +91,11 @@ def _linear(x, p):
 
 def _attend(x, p, n_heads: int, mask=None, rows=None):
     """The heads of attention on (B, T, C) before the output projection:
-    (B, T, width of p's q/k/v); mask (B, T) True = padded key; the
-    probabilities' product with v runs at `rows` rows (at_rows)."""
-    b, t, _ = x.shape
+    (B, T, C); mask (B, T) True = padded key; the probabilities' product
+    with v runs at `rows` rows (at_rows)."""
+    b, t, c = x.shape
     q, k, v = _linear(x, p["q"]), _linear(x, p["k"]), _linear(x, p["v"])
-    width = q.shape[-1]
-    dk = width // n_heads
+    dk = c // n_heads
 
     def heads(y):
         return y.reshape(b, t, n_heads, dk).transpose(1, 2)
@@ -109,7 +105,7 @@ def _attend(x, p, n_heads: int, mask=None, rows=None):
     if mask is not None:
         scores.masked_fill_(mask[:, None, None, :], -1e4)
     out = at_rows(torch.matmul, rows, torch.softmax(scores, dim=-1), v)
-    return out.transpose(1, 2).reshape(b, t, width)
+    return out.transpose(1, 2).reshape(b, t, c)
 
 
 def _encoder_input(params, cfg: HubertConfig, wav, padding_mask, compute_dtype,
@@ -135,83 +131,25 @@ def _encoder_input(params, cfg: HubertConfig, wav, padding_mask, compute_dtype,
 def hubert_extract(params, cfg: HubertConfig, wav, *,
                    output_layer: Optional[int] = None, final_proj: bool = False,
                    padding_mask=None, compute_dtype=torch.float32,
-                   valid_samples=None):
+                   valid_samples=None, rows=None):
     """(B, T_samples) -> (B, T_frames, embed_dim or final_dim).
 
     padding_mask: (B, T_frames) bool, True = padded frame;
-    valid_samples: (B,) real sample counts. hubert_extract_tp with one
-    shard on wav's device."""
-    return hubert_extract_tp([params], [wav.device], cfg, wav,
-                             output_layer=output_layer, final_proj=final_proj,
-                             padding_mask=padding_mask, compute_dtype=compute_dtype,
-                             valid_samples=valid_samples)
-
-
-def _reduce(partials, devices, biases):
-    """Partial products of a row-split projection, partials[m] on devices[m],
-    -> {device: their sum + biases[device]} for each distinct device. The
-    partials are moved there and added in float32 in shard order 0, 1, ...,
-    the bias (rounded to their dtype, as _linear adds it) once after them,
-    and the sum is rounded to their dtype once: every device holds the same
-    bytes. One partial (no split) is _linear's bias add in its own dtype,
-    which rounds the same float32 sum once, without the casts."""
-    dtype = partials[0].dtype
-    if len(partials) == 1:
-        return {devices[0]: partials[0] + biases[devices[0]].to(dtype)}
-    out = {}
-    for dev in dict.fromkeys(devices):
-        total = partials[0].to(dev, torch.float32)
-        for part in partials[1:]:
-            total = total + part.to(dev, torch.float32)
-        out[dev] = (total + biases[dev].to(dtype).float()).to(dtype)
-    return out
-
-
-def hubert_extract_tp(shards, devices, cfg: HubertConfig, wav, *,
-                      output_layer: Optional[int] = None, final_proj: bool = False,
-                      padding_mask=None, compute_dtype=torch.float32,
-                      valid_samples=None, rows=None):
-    """hubert_extract with each layer's attention and FFN split over model
-    shards: shards[m] is model place m's tree (parallel.shard_hubert_params;
-    one shard: the whole tree) on devices[m]; wav, padding_mask and
-    valid_samples lie on devices[0], and so does the result. rows: the row
-    count of the engine's batch, at which the calls whose algorithm the
-    card picks by row count run (ops/conv.py:at_rows), or None.
-
-    Shard m computes its n_heads / n_model heads and its ffn_dim / n_model
-    fc1 columns, and multiplies by its row block of o or fc2 without the
-    bias; the partial products are reduced (_reduce) and o's and fc2's
-    biases are added once, after the reduction, as GSPMD adds a replicated
-    bias. The replicated parts (conv extractor, positional conv, norms,
-    final_proj) run once on each distinct device."""
-    n_model = len(shards)
+    valid_samples: (B,) real sample counts; rows: the row count of the
+    engine's batch, at which the calls whose algorithm the card picks by
+    row count run (ops/conv.py:at_rows), or None. Each post-LN layer:
+    attention, its output projection, the residual and norm1; fc1, GELU,
+    fc2, the residual and norm2; every projection one _linear in x's
+    dtype."""
     if output_layer is None:
         output_layer = cfg.n_layers
-    first = {}  # each distinct device's first shard: its replicated leaves
-    for dev, p in zip(devices, shards):
-        first.setdefault(dev, p)
-
-    def on(t, dev):
-        return None if t is None else t.to(dev)
-
-    mask = {dev: on(padding_mask, dev) for dev in first}
-    x = {dev: _encoder_input(p, cfg, on(wav, dev), mask[dev], compute_dtype,
-                             on(valid_samples, dev), rows)
-         for dev, p in first.items()}
-    heads = cfg.n_heads // n_model
-    for li in range(output_layer):
-        layers = [p["encoder"]["layers"][li] for p in shards]
-        rep = {dev: p["encoder"]["layers"][li] for dev, p in first.items()}
-        y = _reduce([_attend(x[dev], lp["attn"], heads, mask=mask[dev], rows=rows)
-                     @ lp["attn"]["o"]["w"].to(x[dev].dtype)
-                     for dev, lp in zip(devices, layers)], devices,
-                    {dev: lp["attn"]["o"]["b"] for dev, lp in rep.items()})
-        x = {dev: _layer_norm(x[dev] + y[dev], lp["norm1"]) for dev, lp in rep.items()}
-        y = _reduce([F.gelu(_linear(x[dev], lp["fc1"])) @ lp["fc2"]["w"].to(x[dev].dtype)
-                     for dev, lp in zip(devices, layers)], devices,
-                    {dev: lp["fc2"]["b"] for dev, lp in rep.items()})
-        x = {dev: _layer_norm(x[dev] + y[dev], lp["norm2"]) for dev, lp in rep.items()}
-    out = x[devices[0]]
+    x = _encoder_input(params, cfg, wav, padding_mask, compute_dtype, valid_samples, rows)
+    for lp in params["encoder"]["layers"][:output_layer]:
+        y = _linear(_attend(x, lp["attn"], cfg.n_heads, mask=padding_mask, rows=rows),
+                    lp["attn"]["o"])
+        x = _layer_norm(x + y, lp["norm1"])
+        y = _linear(F.gelu(_linear(x, lp["fc1"])), lp["fc2"])
+        x = _layer_norm(x + y, lp["norm2"])
     if final_proj:
-        out = _linear(out, first[devices[0]]["final_proj"])
-    return out
+        x = _linear(x, params["final_proj"])
+    return x

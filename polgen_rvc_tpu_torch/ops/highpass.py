@@ -50,9 +50,9 @@ planner's cut points are near-ties that the two roundings decide
 differently.
 
 On a CUDA tensor ``highpass_pad_quant`` launches the sm_90a kernels of
-csrc/highpass.cu (eight launches, counted once: ``launches.highpass``; the
-samples it filtered: ``highpass_samples_card``) on the current stream,
-with no host sync: the max, the scale and its inverse stay on the device.
+csrc/highpass.cu (eight launches, counted once: ``launches.highpass``) on
+the current stream, with no host sync: the max, the scale and its inverse
+stay on the device.
 On a CPU tensor it runs ``highpass_pad_quant_plain``, the same blocked
 algorithm: (a) and (c) are scipy's lfilter over the tiles as rows, (b) is
 float64 torch ops in the kernel's order, so the kernel's outputs are the
@@ -299,5 +299,4 @@ def highpass_pad_quant(x: torch.Tensor, t_pad: int, window: int = 160):
                                                      q, buf, inv)),
                       int(x.dtype == torch.float64), n, t_pad, bucket, group)
     count("launches.highpass")
-    count("highpass_samples_card", n)
     return audio, q, inv, buf

@@ -138,7 +138,6 @@ def _scan(gx, params):
                       cuda_build.ptr(params["w_hh_units"]), cuda_build.ptr(params["b_hn"]),
                       cuda_build.ptr(out), b, t_len)
     count("launches.gru_scan")
-    count("gru_steps", 2 * b * t_len)
     return out
 
 

@@ -1,2 +1,2 @@
 from .hosts import convert_batch_across_hosts, host_share, host_sum, init_hosts
-from .mesh import Mesh, make_mesh, replicate, shard_batch, shard_hubert_params
+from .mesh import Mesh, make_mesh, replicate, shard_batch

@@ -38,9 +38,9 @@ the tests inject the JAX package's own draws instead.
 
 On a mesh (parallel/mesh.py, ``mesh=``) the per-song work stays on the
 mesh's primary device, and so do a batch's rows and noise, drawn as
-without a mesh; each data shard then takes its rows to its own devices
-and runs HuBERT (tensor-parallel over the row's model places), retrieval
-and the synthesizer there, and the trimmed rows come back in row order.
+without a mesh; each data shard then takes its rows to its own device
+and runs HuBERT, retrieval and the synthesizer there, and the trimmed
+rows come back in row order.
 """
 
 from __future__ import annotations
@@ -56,14 +56,14 @@ import torch
 from .. import resolve_device
 from ..convert.params import params_to_torch
 from ..models.crepe import pack_crepe_weights
-from ..models.hubert import HubertConfig, hubert_extract_tp
+from ..models.hubert import HubertConfig, hubert_extract
 from ..models.nsf import pack_decoder_weights
 from ..models.rmvpe import pack_rmvpe_weights, pad_frames_to_32, rmvpe_mel, rmvpe_salience
 from ..models.synthesizer import SynthesizerConfig, synthesizer_infer
 from ..ops.f0_utils import coarse_f0, salience_to_f0
 from ..ops.filters import highpass_filtfilt
 from ..ops.highpass import highpass_pad_quant, pad_quant_plain
-from ..parallel.mesh import Mesh, replicate, shard_batch, shard_hubert_params
+from ..parallel.mesh import Mesh, replicate, shard_batch
 from ..retrieval.topk import retrieval_blend
 from ..utils.progress import NULL_PROGRESS, ProgressReporter
 from ..utils.tracing import count, span, spanned
@@ -110,17 +110,14 @@ def _plan_on_host(audio16k, eng: EngineConfig):
 
 @dataclasses.dataclass
 class DataShard:
-    """What one data row of the mesh runs its chunk rows with: its device
-    (the row's first), the synthesizer's parameters (kernel layouts
-    included) and the index bank there, and HuBERT as one tree per model
-    place (whole on one device when the mesh has one model place) with
-    those places' devices."""
+    """What one data shard runs its chunk rows with: its device, and the
+    synthesizer's parameters (kernel layouts included), the index bank and
+    HuBERT's parameters there."""
 
     device: torch.device
     synth_params: dict
     index_bank: Optional[torch.Tensor]
-    hubert_params: list
-    hubert_devices: list
+    hubert_params: dict
 
 
 @dataclasses.dataclass
@@ -160,10 +157,10 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
             if device is not None and resolve_device(device) != mesh.primary:
                 raise ValueError(f"device {device} is not the mesh's primary "
                                  f"device {mesh.primary}")
-            if engine.chunk_batch % mesh.shape["data"]:
+            if engine.chunk_batch % len(mesh.devices):
                 raise ValueError(f"chunk_batch {engine.chunk_batch} does not split "
-                                 f"over {mesh.shape['data']} data shards")
-            self.device = resolve_device(mesh.primary)
+                                 f"over {len(mesh.devices)} data shards")
+            self.device = mesh.primary
         self.mesh = mesh
         self.synth_cfg = synth_cfg
         self.hubert_cfg = hubert_cfg
@@ -188,21 +185,13 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
         self._mesh_shards = None if mesh is None else self._place_on_mesh(mesh)
 
     def _place_on_mesh(self, mesh: Mesh) -> list:
-        """One DataShard per data row d, on its first device devices[d, 0]:
-        the synthesizer's parameters and the index bank replicated there,
-        HuBERT replicated too when the mesh has one model place, else split
-        over the row's model places (shard_hubert_params), as the JAX
-        engine places them. A repeated device shares one copy."""
-        first = Mesh(mesh.devices[:, :1])
-        reps = replicate({"synth": self.synth_params, "bank": self.index_bank}, first)
-        if mesh.shape["model"] > 1:
-            hubert = shard_hubert_params(self.hubert_params, mesh, self.hubert_cfg.n_heads)
-        else:
-            whole = replicate(self.hubert_params, first)
-            hubert = [[whole[dev]] for dev in first.devices[:, 0]]
-        return [DataShard(dev, reps[dev]["synth"], reps[dev]["bank"], hubert[d],
-                          list(mesh.devices[d]))
-                for d, dev in enumerate(mesh.devices[:, 0])]
+        """One DataShard per data shard, on its device: the synthesizer's
+        parameters, the index bank and HuBERT replicated there. A repeated
+        device shares one copy."""
+        reps = replicate({"synth": self.synth_params, "bank": self.index_bank,
+                          "hubert": self.hubert_params}, mesh)
+        return [DataShard(dev, reps[dev]["synth"], reps[dev]["bank"], reps[dev]["hubert"])
+                for dev in mesh.devices]
 
     def _data_shards(self) -> list:
         """The DataShards a chunk batch's rows split over: without a mesh,
@@ -210,7 +199,7 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
         if self._mesh_shards is not None:
             return self._mesh_shards
         return [DataShard(self.device, self.synth_params, self.index_bank,
-                          [self.hubert_params], [self.device])]
+                          self.hubert_params)]
 
     # ------------------------------------------------------------------
     # geometry (identical to the JAX engine's)
@@ -383,7 +372,7 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
         without a mesh, the inputs."""
         if self.mesh is None:
             return [inputs]
-        parts = [{} for _ in range(self.mesh.shape["data"])]
+        parts = [{} for _ in self.mesh.devices]
         for name, value in inputs.items():
             if value is None:
                 blocks = [None] * len(parts)
@@ -397,9 +386,9 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
 
     def _shard_rows(self, shard: "DataShard", inp: dict, bucket: int, p_len: int,
                     opts: ConversionOptions, use_index: bool, use_protect: bool):
-        """One data shard's rows, on its device: HuBERT (tensor-parallel over
-        the shard's model devices) -> retrieval -> 2x frame repeat ->
-        protect mix -> synthesizer -> pad trim. (rows, out_len) float32.
+        """One data shard's rows, on its device: HuBERT -> retrieval -> 2x
+        frame repeat -> protect mix -> synthesizer -> pad trim. (rows,
+        out_len) float32.
         The calls whose algorithm the card picks by row count run at
         chunk_batch rows (ops/conv.py:at_rows), so a shard's rows get the
         unsharded batch's bytes."""
@@ -409,8 +398,8 @@ class VoiceConverter(BatchCoverMixin, PrewarmMixin):
         with span("polgen.hubert"):
             hub_pad = (torch.arange(self.hubert_cfg.num_frames(bucket), device=dev)[None, :]
                        >= inp["hub_valid"][:, None])
-            feats = hubert_extract_tp(
-                shard.hubert_params, shard.hubert_devices, self.hubert_cfg, inp["wav"],
+            feats = hubert_extract(
+                shard.hubert_params, self.hubert_cfg, inp["wav"],
                 output_layer=9 if (v1 and n_layers >= 9) else n_layers,
                 final_proj=v1, compute_dtype=cdt, padding_mask=hub_pad,
                 valid_samples=inp["samp_lens"], rows=eng.chunk_batch,

@@ -20,11 +20,6 @@ Counters. A registry of plain integers of the process, read with
                       synthesizer frames (pipeline/engine.py)
     frames_valid      the sum of those rows' valid frames
     launches.<kernel> launches of each hand-written kernel (ops/)
-    gru_steps         steps of the BiGRU scan kernel: batch rows x frames
-                      x 2 directions a launch (ops/rnn.py)
-    highpass_samples_card
-                      samples high-passed by the card's kernel (each song's
-                      raw signal, ops/highpass.py)
     fcpe_frames_computed
                       each FCPE pass: the mel frames its net runs over, the
                       bucket's (pipeline/fcpe_method.py)

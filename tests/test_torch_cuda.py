@@ -539,7 +539,7 @@ def test_gru_scan_kernel(dev, full_fp32, t, b):
 
 
 def test_gru_scan_counts_its_launch_and_steps(dev, full_fp32):
-    """One launches.gru_scan and 2 x B x T gru_steps a call."""
+    """One launches.gru_scan a call."""
     from polgen_rvc_tpu_torch.utils.tracing import counters
 
     rng = np.random.default_rng(2)
@@ -551,7 +551,6 @@ def test_gru_scan_counts_its_launch_and_steps(dev, full_fp32):
         torch.cuda.synchronize()
         after = counters()
         assert after["launches.gru_scan"] - before.get("launches.gru_scan", 0) == 1
-        assert after["gru_steps"] - before.get("gru_steps", 0) == 2 * b * t
 
 
 @pytest.mark.parametrize("bad", ["float64 x", "383 wide", "non-contiguous x",
@@ -928,10 +927,15 @@ def test_program_spans_put_nothing_on_the_card(dev):
 
 
 def test_convert_on_a_repeated_card_mesh(dev):
-    """A tiny convert on a 2x2 mesh of cuda:0 named four times (one row a
-    data shard, HuBERT over two model shards): within the repo's 0.5 dB
-    gate of the unsharded convert, the synthesizer's kernels launched once
-    a data shard a batch."""
+    """A tiny convert on a 2x1 data mesh of cuda:0 named twice (one row a
+    data shard): within the repo's 0.5 dB gate of the unsharded convert,
+    the synthesizer's kernels launched once a data shard a batch; on a
+    1x1 mesh, the unsharded bytes. The tiny widths are not held byte for
+    byte on 2x1: the card picks some of their calls' algorithms by row
+    count (the tiny HuBERT's 64-channel first conv; in fp32 also
+    retrieval's einsum), and ops/conv.py:at_rows pads only the calls the
+    published widths need (their bytes are held by
+    test_one_row_shard_gives_the_batch_bytes_at_every_bucket)."""
     from polgen_rvc_tpu_torch.parallel import make_mesh
     from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions
     from polgen_rvc_tpu_torch.utils.metrics import mel_distortion_db
@@ -939,7 +943,7 @@ def test_convert_on_a_repeated_card_mesh(dev):
     opts = ConversionOptions(index_rate=0.5, protect=0.33, volume_envelope=0.25)
     song = _mesh_song()
     want, sr = _tiny_converter(device=dev).convert(song, opts)
-    vc = _tiny_converter(mesh=make_mesh(2, 2, devices=["cuda:0"] * 4))
+    vc = _tiny_converter(mesh=make_mesh(2, devices=["cuda:0"] * 2))
     n_batches = len(vc._batch_geometry(vc._prepare_song(song, opts).plan)[0])
     cfg = vc.synth_cfg
     pairs = len(cfg.upsample_rates) * sum(len(d) for d in cfg.resblock_dilation_sizes)
@@ -948,15 +952,15 @@ def test_convert_on_a_repeated_card_mesh(dev):
     assert _launches("resblock_group") - before == pairs * 2 * n_batches
     assert got.shape == want.shape
     assert mel_distortion_db(got, want, sr) < 0.5
+    one, _ = _tiny_converter(mesh=make_mesh(1, devices=["cuda:0"])).convert(song, opts)
+    np.testing.assert_array_equal(one, want)
 
 
 def test_convert_on_two_cards(dev, monkeypatch):
-    """Below two cards, skip. Else a 2x2 mesh whose data rows start on
-    cuda:0 and cuda:1 and whose model shards span both cards (HuBERT's
-    partial sums cross between them), with cuda:0 current: every launch of
-    the synthesizer's three kernels goes to its tensors' card, each kernel
-    launches on both cards, and the convert is within 0.5 dB of the
-    unsharded one."""
+    """Below two cards, skip. Else a 2x1 data mesh over cuda:0 and cuda:1,
+    with cuda:0 current: every launch of the synthesizer's three kernels
+    goes to its tensors' card, each kernel launches on both cards, and the
+    convert is within 0.5 dB of the unsharded one."""
     from polgen_rvc_tpu_torch.ops import cuda_build
     from polgen_rvc_tpu_torch.parallel import make_mesh
     from polgen_rvc_tpu_torch.pipeline.config import ConversionOptions
@@ -977,7 +981,7 @@ def test_convert_on_two_cards(dev, monkeypatch):
     song = _mesh_song()
     torch.cuda.set_device(0)
     want, sr = _tiny_converter(device="cuda:0").convert(song, opts)
-    mesh = make_mesh(2, 2, devices=["cuda:0", "cuda:1", "cuda:1", "cuda:0"])
+    mesh = make_mesh(2, devices=["cuda:0", "cuda:1"])
     got, _ = _tiny_converter(mesh=mesh).convert(song, opts)
     cards = {torch.device("cuda:0"), torch.device("cuda:1")}
     for name in ("resblock_pair", "conv_transpose_upsample", "band_attention"):
@@ -1060,7 +1064,7 @@ from polgen_rvc_tpu_torch.pipeline.factory import build_synthetic_converter
 songs = [np.load(p) for p in SONGS]
 vc = build_synthetic_converter(tiny=False, sr=48000, index_vectors=65536,
                                engine=EngineConfig(**TIERS),
-                               mesh=make_mesh(2, 1, devices=["cuda:0"] * 2))
+                               mesh=make_mesh(2, devices=["cuda:0"] * 2))
 init_hosts(PORT, 2, RANK, timeout_s=300)
 out = convert_batch_across_hosts(vc, songs, ConversionOptions(**OPTS))
 dist.destroy_process_group()
@@ -1159,9 +1163,8 @@ def test_highpass_kernel_on_a_240_s_song(dev):
     twin (bit for bit) and against the host's scipy head (the int16 buffer
     within one count, on at most 2e-3 of the samples: the blocked scan and
     scipy's sequential pass round differently, ~1e-7 of the peak apart);
-    the launch counter and highpass_samples_card move; the converter's
-    plan (from the host's own float32 signal) is the host's, and its
-    buffer the kernel's."""
+    the launch counter moves; the converter's plan (from the host's own
+    float32 signal) is the host's, and its buffer the kernel's."""
     import json
 
     from benchmark.signals import Inputs
@@ -1180,8 +1183,6 @@ def test_highpass_kernel_on_a_240_s_song(dev):
     torch.cuda.synchronize()
     after = counters()
     assert after["launches.highpass"] - before.get("launches.highpass", 0) == 1
-    assert (after["highpass_samples_card"] - before.get("highpass_samples_card", 0)
-            == x.shape[0])
     twin = hp.highpass_pad_quant_plain(torch.from_numpy(x), 16000)
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, twin))
     h_audio, h_q, h_inv, _ = filters.highpass_pad_quant(x, 16000)
